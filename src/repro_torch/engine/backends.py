@@ -1,0 +1,227 @@
+"""Execution backends for compiled plans (port of ``repro.engine.backends``).
+
+Two ways to run the same flat cross-layer schedule:
+
+  * ``kernel`` — the hand-written CUDA kernels: one ``bsr_megakernel``
+                 launch per forward for fused plans, one ``bsr_matmul``
+                 launch per layer for layered ones (the counterpart of
+                 ``pallas``/``interpret``).  On CPU tensors the kernel
+                 wrappers run their plain PyTorch versions.
+  * ``torch``  — a segment lowering of the same flat arrays in plain
+                 PyTorch: ``index_select`` gather, a batched f32 block
+                 product, an ``index_add_`` segment sum, then bias and
+                 epilogue (the counterpart of ``jnp``; also the safe twin).
+
+Both consume the same schedule arrays, so the connection order is identical
+across backends; only the machinery that walks it differs.  ``auto``
+resolves to ``kernel``.  The kernels take their epilogues by name; a
+callable epilogue is accepted on the ``torch`` backend only.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, List, Optional, Sequence
+
+import torch
+
+from ..core.blocksparse import BSRLayer
+from ..kernels.bsr_matmul import (
+    Activation,
+    activation_code,
+    apply_activation,
+    bsr_matmul,
+    bsr_megakernel,
+)
+from ..kernels.ops import CompiledSchedule, FlatSchedule
+
+BACKENDS = ("kernel", "torch")
+
+
+def resolve_backend(name: str) -> str:
+    """Resolve ``auto`` (and validate) to a concrete backend name."""
+    if name == "auto":
+        return "kernel"
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; pick from {('auto',) + BACKENDS}")
+    return name
+
+
+def tile_occupancy(h: torch.Tensor, block: int, grid: int,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-input-tile live-row counts of an activation: ``occ[t]`` is the
+    number of batch rows with any nonzero in tile ``t`` (``valid`` [B] bool
+    restricts the count to real batch rows)."""
+    B = h.shape[0]
+    live = h.reshape(B, grid, block) != 0
+    if valid is not None:
+        live = live & valid.reshape(B, 1, 1)
+    return live.any(dim=2).sum(dim=0).to(torch.int32)
+
+
+def activations_equal(a, b) -> bool:
+    """Value-level equality for epilogues (names or callables); partials
+    compare structurally, anything ambiguous counts as not equal."""
+    if a is b:
+        return True
+    if isinstance(a, functools.partial) and isinstance(b, functools.partial):
+        try:
+            return (activations_equal(a.func, b.func)
+                    and bool(a.args == b.args)
+                    and bool(a.keywords == b.keywords))
+        except (TypeError, ValueError):
+            return False
+    try:
+        return bool(a == b)
+    except (TypeError, ValueError):
+        return False
+
+
+def _check_kernel_activations(activations: Sequence[Activation]) -> None:
+    for act in activations:
+        activation_code(act)   # raises for a callable or an unknown name
+
+
+# --------------------------------------------------------------------------- #
+# per-layer dispatch (layered path + fallback for non-uniform tiles)
+# --------------------------------------------------------------------------- #
+
+def _torch_segment(
+    x: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    blocks: torch.Tensor,
+    bias: torch.Tensor,
+    bm: int,
+    bn: int,
+    grid_in: int,
+    grid_out: int,
+    activation: Activation,
+    scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One schedule segment as gather -> block product -> segment sum.
+
+    Accumulates in f32 and dequantizes narrow blocks per block right before
+    the product (``scales`` [nnz] f32), the same f32 weight values the
+    kernels produce.  ``index_add_`` sums in another order than the
+    reference's ``segment_sum``, so f32 parity is a tolerance, not bits.
+    """
+    B = x.shape[0]
+    xt = x.float().reshape(B, grid_in, bm).transpose(0, 1)        # [gi, B, bm]
+    gathered = xt.index_select(0, rows.long())                    # [nnz, B, bm]
+    w = blocks.float()
+    if scales is not None:
+        w = w * scales[:, None, None]
+    contrib = torch.bmm(gathered, w)                              # [nnz, B, bn]
+    y = torch.zeros((grid_out, B, bn), dtype=torch.float32, device=x.device)
+    y.index_add_(0, cols.long(), contrib)
+    y = y.transpose(0, 1).reshape(B, grid_out * bn) + bias.float()
+    return apply_activation(y, activation).to(x.dtype)
+
+
+def make_forward(
+    layers: Sequence[BSRLayer],
+    schedules: Sequence[CompiledSchedule],
+    activations: Sequence[Activation],
+    backend: str,
+) -> Callable:
+    """Per-layer dispatch forward: x [B, n_in] -> [B, n_out].
+
+    One ``bsr_matmul`` launch (or one ``torch`` segment pass) per layer —
+    the layered path, and the fallback for nets the flat schedule cannot
+    express (non-uniform tiles) or the megakernel cannot fuse (mixed hidden
+    epilogues).
+    """
+    layers = list(layers)
+    schedules = list(schedules)
+    activations = list(activations)
+    if backend == "kernel":
+        _check_kernel_activations(activations)
+    device = schedules[0].blocks.device
+    biases = [torch.as_tensor(lay.bias, dtype=torch.float32).to(device)
+              for lay in layers]
+
+    def forward(x):
+        h = x
+        for layer, sch, act, bias in zip(layers, schedules, activations,
+                                         biases):
+            if backend == "torch":
+                h = _torch_segment(h, sch.rows, sch.cols, sch.blocks, bias,
+                                   layer.block_m, layer.block_n,
+                                   layer.grid_in, layer.grid_out, act,
+                                   scales=sch.scales)
+            else:
+                h = bsr_matmul(h, sch, bias, act)
+        return h
+
+    return forward
+
+
+# --------------------------------------------------------------------------- #
+# fused dispatch: the whole net as one flat schedule
+# --------------------------------------------------------------------------- #
+
+def _check_fusible_activations(activations: Sequence[Activation]) -> None:
+    """The megakernel fuses ONE hidden epilogue; equal-but-distinct
+    callables (per-layer partials with the same bound args) count as one."""
+    hidden = list(activations[:-1])
+    distinct = sum(1 for a in hidden[1:] if not activations_equal(hidden[0], a))
+    if distinct:
+        raise ValueError(
+            "the megakernel fuses ONE hidden-layer activation; got "
+            f"{distinct + 1} distinct hidden epilogues — use fuse=False "
+            "(per-layer dispatch) for heterogeneous activations"
+        )
+
+
+def _flat_segments(layers, flat: FlatSchedule, activations) -> List[tuple]:
+    """Per-layer views of the flat arrays, materialized once."""
+    segs = []
+    bias_row = 0
+    for k, (s, e) in enumerate(flat.segments):
+        lay = layers[k]
+        bias = flat.bias_tiles[bias_row:bias_row + lay.grid_out].reshape(-1)
+        scales = None if flat.scales is None else flat.scales[s:e]
+        segs.append((flat.rows[s:e], flat.cols[s:e], flat.blocks[s:e],
+                     scales, bias, lay.grid_in, lay.grid_out,
+                     activations[k]))
+        bias_row += lay.grid_out
+    return segs
+
+
+def make_fused_forward(
+    layers: Sequence[BSRLayer],
+    flat: FlatSchedule,
+    activations: Sequence[Activation],
+    backend: str,
+) -> Callable:
+    """Whole-network fused forward over one ``FlatSchedule``.
+
+    ``kernel``: a single ``bsr_megakernel`` launch.  ``torch``: the identical
+    flat arrays consumed segment by segment.
+    """
+    layers = list(layers)
+    activations = list(activations)
+    _check_fusible_activations(activations)
+    act = activations[0] if len(activations) > 1 else None
+    fact = activations[-1]
+
+    if backend == "torch":
+        bs = flat.block
+        segs = _flat_segments(layers, flat, activations)
+
+        def forward_torch(x):
+            h = x
+            for rows, cols, blocks, scales, bias, gi, go, a in segs:
+                h = _torch_segment(h, rows, cols, blocks, bias, bs, bs, gi,
+                                   go, a, scales=scales)
+            return h
+
+        return forward_torch
+
+    _check_kernel_activations([act, fact])
+
+    def forward(x):
+        return bsr_megakernel(x, flat, act, fact)
+
+    return forward

@@ -1,0 +1,307 @@
+"""The two hand-written Hopper kernels, their plain versions and launch counts.
+
+``bsr_matmul`` replaces the Pallas kernel
+``repro.kernels.bsr_matmul.bsr_matmul`` (one layer per launch) and
+``bsr_megakernel`` replaces ``repro.kernels.bsr_matmul.bsr_megakernel`` (the
+whole net per launch).  Both are CUDA C++ for ``sm_90a`` in
+``csrc/bsr_kernels.cu``, built by ``_build`` with ``nvcc`` at first use and
+bound through ctypes.  The source's header notes what bounds each kernel on
+the H100 and what its design does about it.
+
+Each wrapper dispatches on the device of ``x``: a CUDA tensor launches the
+kernel on ``torch.cuda.current_stream()`` (or raises — there is no fallback),
+a CPU tensor runs the plain PyTorch version beside it.  The plain versions
+walk the schedule step by step with the kernels' ``first``/``last``
+semantics, accumulate in f32 and keep hidden activations in f32; they are
+what the kernels are checked against on the card, and what the CPU tests
+run.  Their products assume PyTorch's default full-f32 matmul
+(``torch.backends.cuda.matmul.allow_tf32`` False).
+
+``bsr_matmul.launches`` / ``bsr_megakernel.launches`` count kernel launches
+(plain-version calls are not counted); ``reset_launches()`` zeroes both.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+Activation = Union[str, Callable, None]
+
+
+def _squared_relu(y: torch.Tensor) -> torch.Tensor:
+    r = torch.relu(y)
+    return r * r
+
+
+def _gelu(y: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh form; F.gelu's default is erf
+    return F.gelu(y, approximate="tanh")
+
+
+#: epilogue name -> torch function (None = identity); the kernels' table
+ACTIVATIONS = {
+    "none": None,
+    "relu": torch.relu,
+    "gelu": _gelu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "silu": F.silu,
+    "squared_relu": _squared_relu,
+}
+
+#: epilogue name -> the integer the CUDA kernels switch on (keep in step
+#: with ``enum Act`` in csrc/bsr_kernels.cu)
+ACTIVATION_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
+
+_X_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# bsr_matmul's grid is (runs, row chunks of kRows = 8 rows); CUDA caps the
+# second grid dimension at 65535
+_ROWS_PER_CTA = 8
+_MAX_GRID_Y = 65535
+_W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
+
+def apply_activation(y: torch.Tensor, act: Activation) -> torch.Tensor:
+    """Apply an epilogue given by name (the kernels' table) or callable."""
+    if act is None:
+        return y
+    if callable(act):
+        return act(y)
+    try:
+        fn = ACTIVATIONS[act]
+    except KeyError:
+        raise ValueError(f"unknown activation {act!r}; pick from "
+                         f"{sorted(ACTIVATIONS)}") from None
+    return y if fn is None else fn(y)
+
+
+def activation_code(act: Activation) -> int:
+    """The kernels' integer code of an epilogue name."""
+    if act is None:
+        return ACTIVATION_CODES["none"]
+    if callable(act):
+        raise ValueError(
+            "the CUDA kernels take an activation by name "
+            f"({sorted(ACTIVATION_CODES)}), not a callable — use the 'torch' "
+            "backend for a custom epilogue")
+    try:
+        return ACTIVATION_CODES[act]
+    except KeyError:
+        raise ValueError(f"unknown activation {act!r}; pick from "
+                         f"{sorted(ACTIVATION_CODES)}") from None
+
+
+def reset_launches() -> None:
+    """Zero both kernels' launch counts."""
+    bsr_matmul.launches = 0
+    bsr_megakernel.launches = 0
+
+
+def _dequant(blocks: torch.Tensor, scales: Optional[torch.Tensor]):
+    w = blocks.float()
+    return w if scales is None else w * scales[:, None, None]
+
+
+def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
+    """Validate what the kernel takes; raise on anything else."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x must lie on the CPU or a CUDA device, "
+                         f"got {x.device}")
+    if x.dtype not in _X_CODES:
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    for key in ("rows", "cols", "run_ptr", "layer_runs", "bias_idx"):
+        t = tensors.get(key)
+        if t is not None and t.dtype != torch.int32:
+            raise ValueError(f"{name}: {key} must be int32, got {t.dtype}")
+    for key in ("bias", "bias_tiles", "scales"):
+        t = tensors.get(key)
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} must be float32, got {t.dtype}")
+    if tensors["blocks"].dtype not in _W_CODES:
+        raise ValueError(f"{name}: blocks must be float32, bfloat16 or "
+                         f"float8_e4m3fn, got {tensors['blocks'].dtype}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# --------------------------------------------------------------------------- #
+# one layer per launch
+# --------------------------------------------------------------------------- #
+
+def bsr_matmul_plain(x: torch.Tensor, schedule, bias: torch.Tensor,
+                     activation: Activation = "none") -> torch.Tensor:
+    """Plain version of ``bsr_matmul``: the schedule walked step by step."""
+    B = x.shape[0]
+    _, bm, bn = schedule.blocks.shape
+    w = _dequant(schedule.blocks, schedule.scales)
+    xf = x.float()
+    b = bias.float()
+    out = torch.empty((B, schedule.grid_out * bn), dtype=x.dtype,
+                      device=x.device)
+    rows, cols = schedule.rows.tolist(), schedule.cols.tolist()
+    first, last = schedule.first.tolist(), schedule.last.tolist()
+    acc = None
+    for g, r in enumerate(rows):
+        if first[g]:
+            acc = torch.zeros((B, bn), dtype=torch.float32, device=x.device)
+        acc = acc + xf[:, r * bm:(r + 1) * bm] @ w[g]
+        if last[g]:
+            c = cols[g]
+            y = apply_activation(acc + b[c * bn:(c + 1) * bn], activation)
+            out[:, c * bn:(c + 1) * bn] = y.to(x.dtype)
+    return out
+
+
+def bsr_matmul(x: torch.Tensor, schedule, bias: torch.Tensor,
+               activation: Activation = "none") -> torch.Tensor:
+    """``y = act(x @ W_bsr + b)`` for one layer's ``CompiledSchedule``.
+
+    ``x`` [B, n_in] is float32 or bfloat16 (any B); the output is
+    [B, grid_out * bn] in ``x.dtype``.  Weight blocks may be float32,
+    bfloat16 or float8_e4m3fn, dequantized by ``schedule.scales``.
+    """
+    B, n_in = x.shape
+    _, bm, bn = schedule.blocks.shape
+    if n_in % bm:
+        raise ValueError("n_in must be a multiple of the block size")
+    if x.device.type == "cpu":
+        return bsr_matmul_plain(x, schedule, bias, activation)
+    act = activation_code(activation)
+    _check_cuda("bsr_matmul", x, dict(
+        blocks=schedule.blocks, rows=schedule.rows, cols=schedule.cols,
+        run_ptr=schedule.run_ptr, bias=bias, scales=schedule.scales, x=x))
+    if B > _MAX_GRID_Y * _ROWS_PER_CTA:
+        raise ValueError(f"bsr_matmul: batch {B} exceeds the kernel's grid "
+                         f"({_MAX_GRID_Y * _ROWS_PER_CTA} rows); split it")
+    n_runs = schedule.run_ptr.numel() - 1
+    if n_runs != schedule.grid_out:
+        raise ValueError(f"bsr_matmul: {n_runs} output-tile runs for "
+                         f"{schedule.grid_out} output tiles; compile the "
+                         "schedule with compile_schedule (it patches empty "
+                         "tiles)")
+    n_out = schedule.grid_out * bn
+    if bias.numel() != n_out:
+        raise ValueError(f"bsr_matmul: bias has {bias.numel()} entries for "
+                         f"{n_out} outputs")
+    out = torch.empty((B, n_out), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return out
+    scales = schedule.scales
+    rc = _build.load().bsr_matmul_launch(
+        _X_CODES[x.dtype], _W_CODES[schedule.blocks.dtype],
+        x.data_ptr(), schedule.blocks.data_ptr(), schedule.rows.data_ptr(),
+        schedule.cols.data_ptr(), schedule.run_ptr.data_ptr(),
+        bias.data_ptr(), None if scales is None else scales.data_ptr(),
+        out.data_ptr(), B, n_in, n_out, bm, bn, n_runs, act, _stream())
+    if rc:
+        raise RuntimeError(f"bsr_matmul: kernel launch failed, CUDA error {rc}")
+    bsr_matmul.launches += 1
+    return out
+
+
+bsr_matmul.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# the whole net per launch
+# --------------------------------------------------------------------------- #
+
+def bsr_megakernel_plain(x: torch.Tensor, flat,
+                         activation: Activation = "none",
+                         final_activation: Activation = "none"
+                         ) -> torch.Tensor:
+    """Plain version of ``bsr_megakernel``: the flat schedule walked step by
+    step, hidden tiles kept in two f32 ping-pong buffers."""
+    B = x.shape[0]
+    bs = flat.block
+    w = _dequant(flat.blocks, flat.scales)
+    xf = x.float()
+    out = torch.empty((B, flat.grid_out_final * bs), dtype=x.dtype,
+                      device=x.device)
+    hidden = torch.zeros((2, flat.hidden_tiles, B, bs), dtype=torch.float32,
+                         device=x.device)
+    lids, rows, cols = (flat.layer_id.tolist(), flat.rows.tolist(),
+                        flat.cols.tolist())
+    first, last = flat.first.tolist(), flat.last.tolist()
+    bias_idx = flat.bias_idx.tolist()
+    final = flat.n_layers - 1
+    acc = None
+    for g, (lid, r) in enumerate(zip(lids, rows)):
+        if first[g]:
+            acc = torch.zeros((B, bs), dtype=torch.float32, device=x.device)
+        src = xf[:, r * bs:(r + 1) * bs] if lid == 0 \
+            else hidden[(lid - 1) % 2, r]
+        acc = acc + src @ w[g]
+        if last[g]:
+            c = cols[g]
+            y = acc + flat.bias_tiles[bias_idx[g]]
+            if lid == final:
+                out[:, c * bs:(c + 1) * bs] = \
+                    apply_activation(y, final_activation).to(x.dtype)
+            else:
+                hidden[lid % 2, c] = apply_activation(y, activation)
+    return out
+
+
+def bsr_megakernel(x: torch.Tensor, flat,
+                   activation: Activation = "none",
+                   final_activation: Activation = "none") -> torch.Tensor:
+    """The whole net of a ``FlatSchedule`` in one launch.
+
+    ``activation`` is the one hidden epilogue, ``final_activation`` the last
+    layer's.  ``x`` [B, n_in] is float32 or bfloat16 (any B); the output is
+    [B, grid_out_final * block] in ``x.dtype``.  The f32 hidden ping-pong
+    buffer [2, hidden_tiles, B, block] is allocated here with ``torch.empty``.
+    """
+    B, n_in = x.shape
+    bs = flat.block
+    if n_in % bs:
+        raise ValueError("n_in must be a multiple of the block size")
+    if x.device.type == "cpu":
+        return bsr_megakernel_plain(x, flat, activation, final_activation)
+    act = activation_code(activation)
+    fact = activation_code(final_activation)
+    _check_cuda("bsr_megakernel", x, dict(
+        blocks=flat.blocks, rows=flat.rows, cols=flat.cols,
+        run_ptr=flat.run_ptr, layer_runs=flat.layer_runs,
+        bias_idx=flat.bias_idx, bias_tiles=flat.bias_tiles,
+        scales=flat.scales, x=x))
+    n_out = flat.grid_out_final * bs
+    out = torch.empty((B, n_out), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return out
+    hidden = torch.empty((2, flat.hidden_tiles, B, bs), dtype=torch.float32,
+                         device=x.device)
+    scales = flat.scales
+    rc = _build.load().bsr_megakernel_launch(
+        _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype],
+        x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
+        flat.cols.data_ptr(), flat.run_ptr.data_ptr(),
+        flat.layer_runs.data_ptr(), flat.bias_idx.data_ptr(),
+        flat.bias_tiles.data_ptr(),
+        None if scales is None else scales.data_ptr(),
+        hidden.data_ptr(), out.data_ptr(), B, n_in, n_out, bs,
+        flat.n_layers, flat.hidden_tiles, flat.max_layer_runs, act, fact,
+        _stream())
+    if rc:
+        raise RuntimeError(
+            f"bsr_megakernel: kernel launch failed, CUDA error {rc}")
+    bsr_megakernel.launches += 1
+    return out
+
+
+bsr_megakernel.launches = 0

@@ -26,6 +26,10 @@ def pytest_configure(config):
         "markers",
         "stress: real-thread concurrency stress tests (CI runs these in "
         "their own lane with -p no:cacheprovider -x)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels on the card); "
+        "skips without one")
 
 
 @pytest.fixture(autouse=True)

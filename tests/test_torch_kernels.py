@@ -1,0 +1,179 @@
+"""Kernel parity: the port's kernel wrappers against the Pallas kernels.
+
+On the CPU each wrapper runs its plain version; the reference kernels run in
+Pallas interpret mode through the reference's own dispatch (which pads the
+batch to its sublane multiple), so odd batches work on both sides.
+
+Tolerances (error = max |a - b| / (1 + |b|)): f32 outputs 1e-5 (both sides
+accumulate in f32, in different orders); bf16 outputs 3e-2 (one bf16 ulp of
+rounding apart), as the reference's kernel tests.  Quantized weights
+dequantize to identical f32 values on both sides, so they keep the f32/bf16
+output tolerance.
+
+Tests that need the card are marked ``cuda`` and skip without one.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.engine import backends as jbackends
+from repro.kernels import ops as jops
+from repro_torch.convert import layers_from_numpy
+from repro_torch.kernels import bsr_matmul as K
+from repro_torch.kernels import ops as tops
+
+JAX_ACT = {"relu": jax.nn.relu, "gelu": jax.nn.gelu, "sigmoid": jax.nn.sigmoid,
+           "none": None}
+TOL = {"f32": 1e-5, "bf16": 3e-2}
+
+
+def err(a, b) -> float:
+    a = np.asarray(a, dtype=np.float32)
+    b = np.asarray(b, dtype=np.float32)
+    return float(np.max(np.abs(a - b) / (1.0 + np.abs(b))))
+
+
+def port_out(y: torch.Tensor) -> np.ndarray:
+    return y.float().numpy()
+
+
+# (sizes, block, density, x dtype, weight dtype, batch, activation)
+LAYER_CASES = [
+    ((128, 192), (32, 64), 0.5, "f32", "f32", 3, "relu"),
+    ((128, 128), (64, 32), 0.4, "bf16", "f32", 5, "gelu"),
+    ((96, 128), (32, 32), 0.3, "f32", "bf16", 1, "sigmoid"),
+    ((128, 96), (32, 32), 0.5, "f32", "fp8", 7, "gelu"),
+    ((64, 128), (32, 32), 0.1, "bf16", "fp8", 2, "relu"),
+]
+
+
+@pytest.mark.parametrize("sizes,block,density,xdt,wdt,batch,act", LAYER_CASES)
+def test_bsr_matmul_plain_matches_pallas(sizes, block, density, xdt, wdt,
+                                         batch, act):
+    from repro.core.blocksparse import to_bsr
+
+    rng = np.random.default_rng(sum(sizes) + batch)
+    w = rng.standard_normal(sizes).astype(np.float32) * 0.1
+    b = rng.standard_normal(sizes[1]).astype(np.float32) * 0.1
+    jl = to_bsr(w, *block, density=density, bias=b)
+    tl = layers_from_numpy([jl])[0]
+    perm = np.lexsort((jl.rows, jl.cols))
+    jsch = jops.compile_schedule(jl, perm, wdt)
+    tsch = tops.compile_schedule(tl, perm, wdt)
+    x = rng.standard_normal((batch, sizes[0])).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16 if xdt == "bf16" else jnp.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if xdt == "bf16"
+                                else torch.float32)
+    fwd = jbackends.make_forward([jl], [jsch], [JAX_ACT[act]], "interpret")
+    y_ref = np.asarray(fwd(jx).astype(jnp.float32))
+    y = K.bsr_matmul(tx, tsch, torch.from_numpy(tl.bias), act)
+    assert y.dtype == tx.dtype and y.shape == (batch, sizes[1])
+    assert err(port_out(y), y_ref) < TOL[xdt]
+    assert K.bsr_matmul.launches == 0      # the plain version ran
+
+
+MEGA_CASES = [
+    ((96, 128, 64), 0.4, "f32", "f32", 3, "relu"),
+    ((64, 128, 96, 64), 0.3, "f32", "bf16", 5, "gelu"),
+    ((128, 64, 96), 0.5, "bf16", "fp8", 2, "sigmoid"),
+]
+
+
+@pytest.mark.parametrize("sizes,density,xdt,wdt,batch,act", MEGA_CASES)
+def test_bsr_megakernel_plain_matches_pallas(make_stack, sizes, density, xdt,
+                                             wdt, batch, act):
+    jls = make_stack(sizes=sizes, density=density, block=32, seed=batch)
+    tls = layers_from_numpy(jls)
+    jschs, tschs = [], []
+    for jl, tl in zip(jls, tls):
+        perm = np.lexsort((jl.rows, jl.cols))
+        jschs.append(jops.compile_schedule(jl, perm, wdt))
+        tschs.append(tops.compile_schedule(tl, perm, wdt))
+    jflat = jops.compile_flat_schedule(jls, jschs)
+    tflat = tops.compile_flat_schedule(tls, tschs)
+    acts = [JAX_ACT[act]] * (len(jls) - 1) + [None]
+    fwd = jbackends.make_fused_forward(jls, jflat, acts, "interpret")
+    x = np.random.default_rng(batch).standard_normal(
+        (batch, sizes[0])).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16 if xdt == "bf16" else jnp.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if xdt == "bf16"
+                                else torch.float32)
+    y_ref = np.asarray(fwd(jx).astype(jnp.float32))
+    y = K.bsr_megakernel(tx, tflat, act, "none")
+    assert y.dtype == tx.dtype and y.shape == (batch, sizes[-1])
+    assert err(port_out(y), y_ref) < TOL[xdt]
+    assert K.bsr_megakernel.launches == 0
+
+
+@pytest.mark.parametrize("act", ["relu", "none"])
+def test_plain_kernel_matches_dense_oracle(make_stack, act):
+    """The port's own dense oracle agrees with the per-layer walk."""
+    from repro_torch.kernels.ref import bsr_matmul_ref
+
+    tl = layers_from_numpy(make_stack(sizes=(128, 96), density=0.3,
+                                      block=32))[0]
+    sch = tops.compile_schedule(tl, np.lexsort((tl.rows, tl.cols)))
+    x = torch.randn((3, 128), generator=torch.Generator().manual_seed(1))
+    bias = torch.from_numpy(tl.bias)
+    want = bsr_matmul_ref(x, tl.rows, tl.cols, torch.from_numpy(tl.blocks),
+                          bias, tl.grid_in, tl.grid_out, act)
+    assert err(K.bsr_matmul(x, sch, bias, act).numpy(), want.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("name", sorted(K.ACTIVATIONS))
+def test_activation_table_matches_reference(name):
+    """Each epilogue equals the reference's (gelu is the tanh form)."""
+    from repro.engine.engine import ACTIVATIONS as JAX_ACTIVATIONS
+
+    y = np.linspace(-6, 6, 97, dtype=np.float32)
+    ref = JAX_ACTIVATIONS[None if name == "none" else name]
+    want = y if ref is None else np.asarray(ref(jnp.asarray(y)))
+    got = K.apply_activation(torch.from_numpy(y), name).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_codes_reject_callables_and_unknown_names():
+    assert K.activation_code(None) == K.activation_code("none") == 0
+    with pytest.raises(ValueError, match="by name"):
+        K.activation_code(torch.relu)
+    with pytest.raises(ValueError, match="unknown activation"):
+        K.activation_code("swish")
+
+
+def test_wrapper_rejects_non_cuda_non_cpu_tensor(make_stack):
+    tl = layers_from_numpy(make_stack(sizes=(64, 64), block=32))[0]
+    sch = tops.compile_schedule(tl, np.lexsort((tl.rows, tl.cols)))
+    x = torch.zeros((2, 64), device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        K.bsr_matmul(x, sch, torch.from_numpy(tl.bias))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100: see README)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", ("f32", "bf16", "fp8"))
+def test_cuda_kernels_match_plain(make_stack, cuda_device, wdt):
+    """Both kernels on the card against their plain versions, odd batch."""
+    tls = layers_from_numpy(make_stack(sizes=(128, 256, 128), block=32))
+    schs = [tops.compile_schedule(l, np.lexsort((l.rows, l.cols)), wdt,
+                                  device=cuda_device) for l in tls]
+    flat = tops.compile_flat_schedule(tls, schs)
+    x = torch.randn((5, 128), generator=torch.Generator().manual_seed(0))
+    x = x.to(cuda_device)
+    K.reset_launches()
+    y = K.bsr_megakernel(x, flat, "gelu", "none")
+    y_ref = K.bsr_megakernel_plain(x, flat, "gelu", "none")
+    assert err(y.cpu(), y_ref.cpu()) < 1e-4
+    bias = torch.from_numpy(tls[0].bias).to(cuda_device)
+    y = K.bsr_matmul(x, schs[0], bias, "relu")
+    y_ref = K.bsr_matmul_plain(x, schs[0], bias, "relu")
+    assert err(y.cpu(), y_ref.cpu()) < 1e-4
+    assert (K.bsr_matmul.launches, K.bsr_megakernel.launches) == (1, 1)
