@@ -7,22 +7,34 @@ Phases, each of which must pass (any failure exits non-zero):
 
   1. environment: torch/CUDA versions, device capability (9, 0), the card's
      name and power limit from nvidia-smi;
-  2. build: both CUDA kernels compiled with nvcc for sm_90a;
+  2. build: the CUDA sources compiled with nvcc for sm_90a, one nvcc
+     process per source, all started together;
   3. kernel vs plain at the BERT-large FFNN shapes (1024 -> 4096 -> 1024,
      density 0.1, 128x128 tiles, gelu): ``bsr_matmul`` per layer and
      ``bsr_megakernel`` for the net, f32/bf16/fp8 weights, f32/bf16
      inputs, B in {1, 4, 32}, each against its plain PyTorch version;
+     then the gated megakernel on the same widths with relu, half of the
+     hidden tiles killed by a bias of -10 and the first 4 of 8 input tiles
+     zero: occupancy equal to the plain version's, output within tolerance
+     of it and bit-equal to the ungated kernel's, and ``measure_dynamic``'s
+     read fraction below 1;
   4. main path: ``repro_torch.launch.serve --sparse-ffnn --batch 4
      --requests 64 --reorder-iters 300`` in-process — every request answered,
      answers equal to the plan's torch-backend safe twin, and one megakernel
      launch per forward; again with ``--no-fuse``, one bsr_matmul launch per
-     layer per forward;
-  5. times of each kernel, its plain version and a dense PyTorch yardstick,
+     layer per forward; again with ``--gate``, one gated megakernel launch
+     per forward and per dynamic-I/O sample, on Gaussian requests and then
+     on 64 requests whose first 4 input tiles are zero;
+  5. times of each BSR kernel, its plain version and a PyTorch yardstick,
      beside the least time the card could take for the same work: device
      time per call from a torch.profiler trace of 30 calls, and per-call
      time between CUDA events (median of 30, after warm-up), which adds the
      host's share of the call; then one profiled serving window, for the
-     device's busy share.
+     device's busy share;
+  6. ``moe_ffn`` against its plain version at the expert widths of
+     Granite-3.0-1B-A400M (E = 32, C = 640, d = 1024, f = 512, gelu), f32
+     and bf16, f_tile 128 and 512, one call through its entry point, and
+     its times as in 5.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the ``kernels``
@@ -32,6 +44,7 @@ file, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,15 +64,32 @@ MAIN_B = 4
 # bf16 outputs may round one bf16 ulp apart -> 3e-2 (as the reference's
 # kernel tests).  Error = max |a - b| / (1 + |b|).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# H100 SXM data-sheet peaks: HBM bytes/s and
-# f32 FMA operations/s outside the tensor cores (the kernels' arithmetic).
+# moe_ffn vs plain: as the reference's moe tests (bf16 rounds h and the
+# output to bf16 on both sides, from sums taken in different orders)
+MOE_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# Granite-3.0-1B-A400M's experts (configs/granite_moe_1b_a400m.py); C is
+# the capacity of 2048 tokens at top-8, capacity factor 1.25
+MOE_E, MOE_C, MOE_D, MOE_F = 32, 640, 1024, 512
+MOE_F_TILES = (128, 512)
+# the gated checks: input tiles zeroed in x, hidden tiles killed
+DEAD_IN_TILES, KILL_BIAS = 4, -10.0
+# H100 SXM data-sheet peaks: HBM bytes/s, f32 FMA operations/s outside the
+# tensor cores (the kernels' arithmetic) and bf16 tensor-core operations/s.
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+BF16_OPS = 989e12
 TPU_KERNELS = {
     "bsr_matmul": "src/repro/kernels/bsr_matmul.py:81",
     "bsr_megakernel": "src/repro/kernels/bsr_matmul.py:279",
+    "bsr_megakernel_gated": "src/repro/kernels/bsr_matmul.py:279",
+    "moe_ffn": "src/repro/kernels/moe_ffn.py:47",
 }
-SOURCE = "src/repro_torch/kernels/csrc/bsr_kernels.cu"
+SOURCES = {
+    "bsr_matmul": "src/repro_torch/kernels/csrc/bsr_kernels.cu",
+    "bsr_megakernel": "src/repro_torch/kernels/csrc/bsr_kernels.cu",
+    "bsr_megakernel_gated": "src/repro_torch/kernels/csrc/bsr_kernels.cu",
+    "moe_ffn": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+}
 
 
 class SmokeFailure(Exception):
@@ -124,8 +154,8 @@ def device_ms(fn, runs=30, warm=5):
     return us / 1e3 / runs if us > 0 else None
 
 
-def bound_ms(n_bytes, n_ops):
-    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / F32_OPS
+def bound_ms(n_bytes, n_ops, ops_rate=F32_OPS):
+    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / ops_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -223,6 +253,80 @@ def phase_kernels(plans, rng):
     return main_err
 
 
+def kill_tiles(layers):
+    """Half of every hidden layer's output tiles dead: a bias of -10 keeps
+    each pre-activation there below zero, so relu zeroes the tile."""
+    out = []
+    for k, lay in enumerate(layers):
+        if k < len(layers) - 1:
+            bias = np.array(lay.bias, np.float32)
+            bias.reshape(lay.grid_out, lay.block_n)[:lay.grid_out // 2] = \
+                KILL_BIAS
+            lay = dataclasses.replace(lay, bias=bias)
+        out.append(lay)
+    return out
+
+
+def sparse_rows(rng, n):
+    """n Gaussian feature vectors whose first DEAD_IN_TILES input tiles are
+    zero (what users with sparse feature vectors send)."""
+    x = rng.standard_normal((n, SIZES[0])).astype(np.float32)
+    x[:, :DEAD_IN_TILES * BLOCK] = 0.0
+    return x
+
+
+def phase_gated_kernels(layers, rng, Engine):
+    """Gated megakernel vs its plain version and vs the ungated kernel."""
+    from repro_torch.engine import tile_occupancy
+    from repro_torch.kernels import bsr_matmul as K
+
+    killed = kill_tiles(layers)
+    worst, main_err, n, fractions = (0.0, 0.0), None, 0, []
+    for wdt in ("f32", "bf16", "fp8"):
+        plan = Engine(activation="relu", reorder=True,
+                      reorder_iters=REORDER_ITERS, weight_dtype=wdt,
+                      gate=True, device="cuda").compile(killed)
+        check(plan.fused and plan.gate, f"gated {wdt} plan did not fuse")
+        flat = plan.flat
+        for B in BATCHES:
+            x32 = torch.from_numpy(sparse_rows(rng, B)).cuda()
+            for xdt in (torch.float32, torch.bfloat16):
+                x = x32.to(xdt)
+                occ0 = tile_occupancy(x, BLOCK, SIZES[0] // BLOCK)
+                before = K.bsr_megakernel.gated_launches
+                y, occ = K.bsr_megakernel(x, flat, "relu", "none", gate=True,
+                                          occ0=occ0)
+                check(K.bsr_megakernel.gated_launches == before + 1,
+                      "the gated megakernel did not count its launch")
+                y_ref, occ_ref = K.bsr_megakernel_plain(
+                    x, flat, "relu", "none", gate=True, occ0=occ0)
+                y_ungated = K.bsr_megakernel(x, flat, "relu", "none")
+                torch.cuda.synchronize()
+                check(torch.equal(occ.cpu(), occ_ref.cpu()),
+                      f"gated {wdt} x {xdt} B={B}: occupancy {occ.tolist()} "
+                      f"!= plain {occ_ref.tolist()}")
+                check(torch.equal(y, y_ungated),
+                      f"gated {wdt} x {xdt} B={B}: output not bit-equal to "
+                      "the ungated kernel's")
+                err, abs_err = rel_err(y, y_ref)
+                check(err < TOL[xdt], f"gated {wdt} x {xdt} B={B}: error "
+                      f"{err:.3e} >= {TOL[xdt]}")
+                worst = max(worst, (err, abs_err))
+                if (wdt, B, xdt) == ("f32", MAIN_B, torch.float32):
+                    main_err = abs_err
+                n += 1
+            rep = plan.measure_dynamic(x32)
+            fractions.append(rep.read_fraction)
+            check(rep.read_fraction < 1.0,
+                  f"gated {wdt} B={B}: read fraction {rep.read_fraction}")
+            print(f"gated {wdt} B={B}: {rep.summary()}")
+    print(f"gated kernel vs plain: {n} comparisons passed, occupancy equal, "
+          f"output bit-equal to the ungated kernel; worst relative error "
+          f"{worst[0]:.3e}, worst abs error {worst[1]:.3e}; read fraction "
+          f"{min(fractions):.4f}..{max(fractions):.4f}")
+    return main_err
+
+
 def phase_main_path(no_fuse):
     from repro_torch.kernels import bsr_matmul as K
     from repro_torch.launch import serve
@@ -268,6 +372,184 @@ def phase_main_path(no_fuse):
     return launches, server, args
 
 
+def expected_dynamic(plan, dead_in):
+    """Blocks a gated forward reads on Gaussian rows whose first ``dead_in``
+    input tiles are zero: every layer-0 step on a live input tile, and
+    every layer-1 step on a hidden tile that some nonzero layer-0 block
+    fills from a live input tile (any other hidden tile holds gelu(0) = 0
+    for every row)."""
+    rows = plan.flat.rows.cpu().numpy()
+    (s0, e0), (s1, e1) = plan.flat.segments
+    lay = plan.layers[0]
+    live_hidden = {int(c) for r, c in zip(lay.rows, lay.cols) if r >= dead_in}
+    return (int(np.sum(rows[s0:e0] >= dead_in)),
+            int(sum(r in live_hidden for r in rows[s1:e1].tolist())))
+
+
+def phase_gated_main_path():
+    """``serve --gate``: Gaussian requests through ``serve.drive``, then 64
+    requests whose first input tiles are zero, with a dynamic-I/O sample
+    after every batch."""
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(["--sparse-ffnn", "--batch", str(MAIN_B),
+                             "--requests", "64", "--reorder-iters",
+                             str(REORDER_ITERS), "--gate"])
+    plans, server = serve.build_server(args)
+    base = plans.base
+    check(base.fused and base.gate and base._measure is not None,
+          "--gate plan is not a gated fused plan")
+    check(server.measure_dynamic_every == 1, "--gate does not sample")
+    K.reset_launches()
+    report = serve.drive(server, args)
+    torch.cuda.synchronize()
+    gauss = server.io.snapshot()
+    calls0 = sum(plans.bucket_calls.values())
+    rng = np.random.default_rng(3)
+    xs = sparse_rows(rng, 64)
+    rids = []
+    for i, x in enumerate(xs):
+        rids.append(server.submit(x))
+        if i % 3 == 2:
+            server.poll()
+    server.drain()
+    answers = [server.result(r) for r in rids]
+    torch.cuda.synchronize()
+    launches = {"bsr_matmul": K.bsr_matmul.launches,
+                "bsr_megakernel": K.bsr_megakernel.launches,
+                "bsr_megakernel_gated": K.bsr_megakernel.gated_launches}
+    snap = server.io.snapshot()
+    forwards = report.forwards + sum(plans.bucket_calls.values()) - calls0
+    print(f"main path --gate: {server.metrics.summary()}; {forwards} "
+          f"forwards, {snap['batches_measured']} dynamic-I/O samples, "
+          f"launches {launches}")
+    check(launches == {"bsr_matmul": 0, "bsr_megakernel": 0,
+                       "bsr_megakernel_gated":
+                           forwards + snap["batches_measured"]},
+          "gated forwards did not each launch the gated megakernel once")
+    check(server.metrics.io_measure_failed == 0,
+          f"{server.metrics.io_measure_failed} dynamic-I/O samples failed")
+    check(snap["batches_measured"] == server.metrics.batches,
+          "not every batch was sampled")
+    # Gaussian traffic: every input tile live; hidden tiles that no weight
+    # block writes are dead for every request
+    per0, per1 = expected_dynamic(base, 0)
+    n_gauss = gauss["batches_measured"]
+    static = base.flat.rows.numel()
+    check(gauss["dynamic_blocks"] == n_gauss * (per0 + per1)
+          and gauss["static_scheduled"] == n_gauss * static,
+          f"Gaussian traffic: {gauss['dynamic_blocks']} dynamic blocks in "
+          f"{n_gauss} samples, expected {per0 + per1} of {static} each")
+    print(f"gated Gaussian traffic: read fraction {gauss['read_fraction']} "
+          f"({per0 + per1}/{static} blocks per batch; "
+          f"{static - per0 - per1} skipped, all on hidden tiles no weight "
+          "block writes)")
+    # sparse traffic: the layer-0 blocks on the zero input tiles are skipped
+    per0s, per1s = expected_dynamic(base, DEAD_IN_TILES)
+    n_sparse = snap["batches_measured"] - n_gauss
+    dyn_sparse = snap["dynamic_blocks"] - gauss["dynamic_blocks"]
+    last = base.io.dynamic
+    check(n_sparse > 0 and dyn_sparse == n_sparse * (per0s + per1s),
+          f"sparse traffic: {dyn_sparse} dynamic blocks in {n_sparse} "
+          f"samples, expected {per0s + per1s} each")
+    check(last.per_layer_dynamic[0] == per0s < last.per_layer_static[0],
+          f"sparse traffic: layer 0 read {last.per_layer_dynamic[0]} of "
+          f"{last.per_layer_static[0]} blocks")
+    print(f"gated sparse traffic: read fraction "
+          f"{dyn_sparse / (n_sparse * static):.4f} "
+          f"({per0s + per1s}/{static} blocks per batch); last sample: "
+          f"{last.summary()}")
+    x = np.concatenate([np.stack([report.inputs[r]
+                                  for r in sorted(report.inputs)]), xs])
+    y = np.stack([report.outputs[r] for r in sorted(report.inputs)]
+                 + answers)
+    y = torch.from_numpy(y)
+    check(y.shape == (128, SIZES[-1]) and bool(torch.isfinite(y).all()),
+          "gated answers are not finite [128, 1024]")
+    y_ref = base.safe_twin()(torch.from_numpy(x).cuda()).cpu()
+    err, _ = rel_err(y, y_ref)
+    check(err < TOL[torch.float32],
+          f"gated answers vs torch safe twin: error {err:.3e}")
+    print(f"main path --gate answers vs torch-backend safe twin: error "
+          f"{err:.3e}")
+    return launches["bsr_megakernel_gated"]
+
+
+def moe_inputs(dtype, seed=0):
+    """Granite-width expert inputs, made on the card from a seed: x ~ N(0, 1),
+    weights scaled by 1/sqrt(fan-in)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((MOE_E, MOE_C, MOE_D), generator=g, device="cuda")
+    wu = torch.randn((MOE_E, MOE_D, MOE_F), generator=g, device="cuda")
+    wd = torch.randn((MOE_E, MOE_F, MOE_D), generator=g, device="cuda")
+    return (x.to(dtype), (wu / MOE_D ** 0.5).to(dtype),
+            (wd / MOE_F ** 0.5).to(dtype))
+
+
+def phase_moe():
+    """moe_ffn vs plain, one call through the entry point, then times.  It
+    runs after the BSR timings, so that its seconds of heavy arithmetic do
+    not precede them."""
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.kernels import moe_ffn as M
+
+    worst, main_err = (0.0, 0.0), None
+    for dtype in (torch.float32, torch.bfloat16):
+        x, wu, wd = moe_inputs(dtype)
+        for f_tile in MOE_F_TILES:
+            before = M.moe_ffn.launches
+            y = M.moe_ffn(x, wu, wd, "gelu", f_tile)
+            check(M.moe_ffn.launches == before + 1,
+                  "moe_ffn did not count its launch")
+            y_ref = M.moe_ffn_plain(x, wu, wd, "gelu", f_tile)
+            torch.cuda.synchronize()
+            check(y.dtype == dtype and y.shape == x.shape
+                  and bool(torch.isfinite(y).all()),
+                  f"moe_ffn {dtype} f_tile={f_tile}: output dtype/shape")
+            err, abs_err = rel_err(y, y_ref)
+            check(err < MOE_TOL[dtype], f"moe_ffn {dtype} f_tile={f_tile}: "
+                  f"error {err:.3e} >= {MOE_TOL[dtype]}")
+            worst = max(worst, (err, abs_err))
+            if (dtype, f_tile) == (torch.float32, MOE_F):
+                main_err = abs_err
+    print(f"moe_ffn vs plain: 4 comparisons passed (f32/bf16, f_tile in "
+          f"{MOE_F_TILES}); worst relative error {worst[0]:.3e}, worst abs "
+          f"error {worst[1]:.3e} (tolerance f32 {MOE_TOL[torch.float32]}, "
+          f"bf16 {MOE_TOL[torch.bfloat16]})")
+    x, wu, wd = moe_inputs(torch.float32)
+    M.moe_ffn.launches = 0
+    y = M.moe_ffn(x, wu, wd)
+    torch.cuda.synchronize()
+    launches = M.moe_ffn.launches
+    check(launches == 1 and bool(torch.isfinite(y).all()),
+          f"moe_ffn entry point: {launches} launches")
+    del x, wu, wd, y
+    # times; the yardstick is bmm -> gelu -> bmm, three calls
+    gelu = K.ACTIVATIONS["gelu"]
+    main_row = None
+    for dtype, f_tile in ((torch.float32, MOE_F), (torch.float32, 128),
+                          (torch.bfloat16, MOE_F)):
+        mx, wu, wd = moe_inputs(dtype)
+        nbytes = mx.element_size() * (2 * mx.numel() + wu.numel()
+                                      + wd.numel())
+        nops = 4 * MOE_E * MOE_C * MOE_D * MOE_F
+        b_ms, b_by = bound_ms(nbytes, nops, F32_OPS if dtype == torch.float32
+                              else BF16_OPS)
+        row = timed(
+            "moe_ffn", "f32" if dtype == torch.float32 else "bf16",
+            f"E={MOE_E} C={MOE_C} d={MOE_D} f={MOE_F} f_tile={f_tile}",
+            lambda: M.moe_ffn(mx, wu, wd, "gelu", f_tile),
+            lambda: M.moe_ffn_plain(mx, wu, wd, "gelu", f_tile),
+            lambda: torch.bmm(gelu(torch.bmm(mx, wu)).to(dtype), wd),
+            b_ms, b_by)
+        print("time: " + json.dumps(row))
+        if (dtype, f_tile) == (torch.float32, MOE_F):
+            main_row = row
+        del mx, wu, wd
+    return launches, main_err, main_row
+
+
 def timed(name, wdt, shape, kernel, plain, library, b_ms, b_by):
     """One timing row.  ``ms`` / ``library_ms``: device time per call
     (profiler); ``call_ms`` / ``library_call_ms``: per-call time between
@@ -287,34 +569,8 @@ def timed(name, wdt, shape, kernel, plain, library, b_ms, b_by):
     }
 
 
-def phase_trace(server, args):
-    """Where the serving time goes: one more drive of the main path under
-    torch.profiler; device busy share = GPU activity time / wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.launch import serve
-
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        report = serve.drive(server, args)
-        torch.cuda.synchronize()
-    wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name[:60]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    print(f"serving window (profiled): {len(report.inputs)} requests, "
-          f"{report.forwards} forwards, wall {wall_us / 1e3:.3f} ms, device "
-          f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%); top: "
-          + "; ".join(f"{n} {t / 1e3:.3f} ms" for n, t in top))
-
-
-def phase_times(plans, rng, launches, main_err):
+def phase_times(plans, rng):
+    from repro_torch.engine import tile_occupancy
     from repro_torch.kernels import bsr_matmul as K
     from repro_torch.kernels.ref import bsr_to_dense
 
@@ -348,39 +604,107 @@ def phase_times(plans, rng, launches, main_err):
             lambda: K.bsr_matmul(h1, schs[1], biases[1]),
             lambda: K.bsr_matmul_plain(h1, schs[1], biases[1]),
             lambda: torch.addmm(biases[1], h1, dense[1]), b_ms, b_by)
-        row["ms_layer0"] = device_ms(
-            lambda: K.bsr_matmul(x, schs[0], biases[0], "gelu"))
         detail.append(row)
+        if wdt == "f32":
+            # layer 0 (1024 -> 4096, gelu): addmm -> gelu, two calls
+            lay = layers[0]
+            nbytes = (x.numel() * 4 + lay.nnz_blocks * per_block
+                      + lay.n_out * 4 + MAIN_B * lay.n_out * 4)
+            nops = 2 * MAIN_B * BLOCK * BLOCK * lay.nnz_blocks
+            detail.append(timed(
+                "bsr_matmul", wdt, "layer 0, 1024->4096, gelu",
+                lambda: K.bsr_matmul(x, schs[0], biases[0], "gelu"),
+                lambda: K.bsr_matmul_plain(x, schs[0], biases[0], "gelu"),
+                lambda: gelu(torch.addmm(biases[0], x, dense[0])),
+                *bound_ms(nbytes, nops)))
         # the whole net: a dense chain addmm -> gelu -> addmm as yardstick
+        chain = (lambda xx: torch.addmm(biases[1], gelu(torch.addmm(
+            biases[0], xx, dense[0])), dense[1]))
         nnz = sum(l.nnz_blocks for l in layers)
-        nbytes = (x.numel() * 4 + nnz * per_block
-                  + sum(l.n_out for l in layers) * 4
-                  + MAIN_B * SIZES[-1] * 4)
-        nops = 2 * MAIN_B * BLOCK * BLOCK * nnz
-        b_ms, b_by = bound_ms(nbytes, nops)
+        act_bytes = (x.numel() * 4 + sum(l.n_out for l in layers) * 4
+                     + MAIN_B * SIZES[-1] * 4)
+        b_ms, b_by = bound_ms(act_bytes + nnz * per_block,
+                              2 * MAIN_B * BLOCK * BLOCK * nnz)
         mrow = timed(
             "bsr_megakernel", wdt, "whole net",
             lambda: K.bsr_megakernel(x, plan.flat, "gelu", "none"),
             lambda: K.bsr_megakernel_plain(x, plan.flat, "gelu", "none"),
-            lambda: torch.addmm(biases[1], gelu(torch.addmm(
-                biases[0], x, dense[0])), dense[1]), b_ms, b_by)
+            lambda: chain(x), b_ms, b_by)
         detail.append(mrow)
         if wdt == "f32":
             entries["bsr_matmul"] = row
             entries["bsr_megakernel"] = mrow
+            # the gated megakernel on the same net, at 0 % and at 50 % dead
+            # input tiles; the bound counts the blocks on live input tiles
+            flat = plan.flat
+            xs = x.clone()
+            xs[:, :DEAD_IN_TILES * BLOCK] = 0.0
+            for dead, xx in ((0, x), (DEAD_IN_TILES, xs)):
+                occ0 = tile_occupancy(xx, BLOCK, SIZES[0] // BLOCK)
+                _, occ = K.bsr_megakernel(xx, flat, "gelu", "none",
+                                          gate=True, occ0=occ0)
+                occs = [occ0.cpu().numpy(), occ[0].cpu().numpy()]
+                rows_np = flat.rows.cpu().numpy()
+                live = sum(int(np.sum(occs[k][rows_np[s:e]] > 0))
+                           for k, (s, e) in enumerate(flat.segments))
+                b_ms, b_by = bound_ms(
+                    act_bytes + live * per_block + occ0.numel() * 4
+                    + occ.numel() * 4, 2 * MAIN_B * BLOCK * BLOCK * live)
+                grow = timed(
+                    "bsr_megakernel_gated", wdt,
+                    f"whole net, {100 * dead // (SIZES[0] // BLOCK)} % dead "
+                    f"input tiles, {live}/{rows_np.size} blocks live",
+                    lambda: K.bsr_megakernel(xx, flat, "gelu", "none",
+                                             gate=True, occ0=occ0),
+                    lambda: K.bsr_megakernel_plain(xx, flat, "gelu", "none",
+                                                   gate=True, occ0=occ0),
+                    lambda: chain(xx), b_ms, b_by)
+                ungated = (lambda: K.bsr_megakernel(xx, flat, "gelu",
+                                                    "none"))
+                grow["ungated_ms"] = device_ms(ungated) or median_ms(ungated)
+                detail.append(grow)
+            entries["bsr_megakernel_gated"] = grow   # the 50 % row
     for row in detail:
         print("time: " + json.dumps(row))
-    kernels = []
-    for name in ("bsr_matmul", "bsr_megakernel"):
-        row = entries[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": TPU_KERNELS[name], "launches": launches[name],
-            "max_abs_err": main_err[name], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        })
-    return kernels
+    return entries
+
+
+def kernel_line(entries, launches, main_err):
+    """The ``kernels`` JSON rows, one per kernel, from its timing row."""
+    return [{
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": TPU_KERNELS[name], "launches": launches[name],
+        "max_abs_err": main_err[name], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+    } for name, row in entries.items()]
+
+
+def phase_trace(server, args):
+    """Where the serving time goes: one more drive of the main path under
+    torch.profiler; device busy share = GPU activity time / wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        report = serve.drive(server, args)
+        torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:60]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"serving window (profiled): {len(report.inputs)} requests, "
+          f"{report.forwards} forwards, wall {wall_us / 1e3:.3f} ms, device "
+          f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%); top: "
+          + "; ".join(f"{n} {t / 1e3:.3f} ms" for n, t in top))
 
 
 def main() -> int:
@@ -403,11 +727,17 @@ def main() -> int:
         plans = compile_plans(layers, Engine)
         print(plans["f32"].describe())
         main_err = phase_kernels(plans, rng)
+        main_err["bsr_megakernel_gated"] = phase_gated_kernels(layers, rng,
+                                                               Engine)
         launches, server, args = phase_main_path(no_fuse=False)
         launches = dict(launches)
         launches["bsr_matmul"] = phase_main_path(no_fuse=True)[0]["bsr_matmul"]
-        kernels = phase_times(plans, rng, launches, main_err)
+        launches["bsr_megakernel_gated"] = phase_gated_main_path()
+        entries = phase_times(plans, rng)
         phase_trace(server, args)
+        launches["moe_ffn"], main_err["moe_ffn"], entries["moe_ffn"] = \
+            phase_moe()
+        kernels = kernel_line(entries, launches, main_err)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

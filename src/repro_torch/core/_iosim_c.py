@@ -301,7 +301,7 @@ def _build() -> Optional[ctypes.CDLL]:
                 [cc, "-O3", "-shared", "-fPIC", "-o", tmp, csrc],
                 check=True, capture_output=True, timeout=120,
             )
-            os.replace(tmp, so)  # atomic: concurrent builds race safely
+            os.replace(tmp, so)  # atomic: concurrent builders race safely
         except Exception:
             return None
     try:

@@ -12,6 +12,7 @@ from .backends import (
     activations_equal,
     make_forward,
     make_fused_forward,
+    make_fused_measure,
     resolve_backend,
     tile_occupancy,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "activations_equal",
     "make_forward",
     "make_fused_forward",
+    "make_fused_measure",
     "resolve_backend",
     "tile_occupancy",
 ]

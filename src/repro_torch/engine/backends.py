@@ -16,6 +16,11 @@ Both consume the same schedule arrays, so the connection order is identical
 across backends; only the machinery that walks it differs.  ``auto``
 resolves to ``kernel``.  The kernels take their epilogues by name; a
 callable epilogue is accepted on the ``torch`` backend only.
+
+``gate`` turns on runtime tile-occupancy gating: a step whose input tile
+holds no nonzero for any batch row contributes nothing, so the gated
+megakernel (``kernel``) skips it and the ``torch`` lowering masks its
+gather; both stay bit-identical to the ungated forward.
 """
 
 from __future__ import annotations
@@ -97,6 +102,7 @@ def _torch_segment(
     grid_in: int,
     grid_out: int,
     activation: Activation,
+    occ: Optional[torch.Tensor] = None,
     scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One schedule segment as gather -> block product -> segment sum.
@@ -105,10 +111,17 @@ def _torch_segment(
     the product (``scales`` [nnz] f32), the same f32 weight values the
     kernels produce.  ``index_add_`` sums in another order than the
     reference's ``segment_sum``, so f32 parity is a tolerance, not bits.
+
+    ``occ`` ([grid_in] int32, from :func:`tile_occupancy`) masks the gather:
+    a step whose input tile is dead contributes a hard zero instead of its
+    (already all +-0) tile, which leaves every bit of the result as it was.
     """
     B = x.shape[0]
     xt = x.float().reshape(B, grid_in, bm).transpose(0, 1)        # [gi, B, bm]
     gathered = xt.index_select(0, rows.long())                    # [nnz, B, bm]
+    if occ is not None:
+        live = (occ.index_select(0, rows.long()) > 0).to(gathered.dtype)
+        gathered = gathered * live[:, None, None]
     w = blocks.float()
     if scales is not None:
         w = w * scales[:, None, None]
@@ -124,17 +137,21 @@ def make_forward(
     schedules: Sequence[CompiledSchedule],
     activations: Sequence[Activation],
     backend: str,
+    gate: bool = False,
 ) -> Callable:
     """Per-layer dispatch forward: x [B, n_in] -> [B, n_out].
 
     One ``bsr_matmul`` launch (or one ``torch`` segment pass) per layer —
     the layered path, and the fallback for nets the flat schedule cannot
     express (non-uniform tiles) or the megakernel cannot fuse (mixed hidden
-    epilogues).
+    epilogues).  ``gate`` masks each layer's gather on the ``torch``
+    backend only: ``bsr_matmul`` has no occupancy gating (the engine records
+    that on the plan's fallback reason).
     """
     layers = list(layers)
     schedules = list(schedules)
     activations = list(activations)
+    gate = gate and backend == "torch"
     if backend == "kernel":
         _check_kernel_activations(activations)
     device = schedules[0].blocks.device
@@ -146,10 +163,12 @@ def make_forward(
         for layer, sch, act, bias in zip(layers, schedules, activations,
                                          biases):
             if backend == "torch":
+                occ = tile_occupancy(h, layer.block_m, layer.grid_in) \
+                    if gate else None
                 h = _torch_segment(h, sch.rows, sch.cols, sch.blocks, bias,
                                    layer.block_m, layer.block_n,
                                    layer.grid_in, layer.grid_out, act,
-                                   scales=sch.scales)
+                                   occ=occ, scales=sch.scales)
             else:
                 h = bsr_matmul(h, sch, bias, act)
         return h
@@ -194,34 +213,92 @@ def make_fused_forward(
     flat: FlatSchedule,
     activations: Sequence[Activation],
     backend: str,
+    gate: bool = False,
 ) -> Callable:
     """Whole-network fused forward over one ``FlatSchedule``.
 
-    ``kernel``: a single ``bsr_megakernel`` launch.  ``torch``: the identical
-    flat arrays consumed segment by segment.
+    ``kernel``: a single ``bsr_megakernel`` launch (the gated one with
+    ``gate``, fed the layer-0 occupancy computed on the device).
+    ``torch``: the identical flat arrays consumed segment by segment.
     """
     layers = list(layers)
     activations = list(activations)
     _check_fusible_activations(activations)
     act = activations[0] if len(activations) > 1 else None
     fact = activations[-1]
+    bs = flat.block
 
     if backend == "torch":
-        bs = flat.block
         segs = _flat_segments(layers, flat, activations)
 
         def forward_torch(x):
             h = x
             for rows, cols, blocks, scales, bias, gi, go, a in segs:
+                occ = tile_occupancy(h, bs, gi) if gate else None
                 h = _torch_segment(h, rows, cols, blocks, bias, bs, bs, gi,
-                                   go, a, scales=scales)
+                                   go, a, occ=occ, scales=scales)
             return h
 
         return forward_torch
 
     _check_kernel_activations([act, fact])
+    grid_in0 = layers[0].grid_in
 
     def forward(x):
+        if gate:
+            occ0 = tile_occupancy(x, bs, grid_in0)
+            return bsr_megakernel(x, flat, act, fact, gate=True, occ0=occ0)[0]
         return bsr_megakernel(x, flat, act, fact)
 
     return forward
+
+
+def make_fused_measure(
+    layers: Sequence[BSRLayer],
+    flat: FlatSchedule,
+    activations: Sequence[Activation],
+    backend: str,
+) -> Callable:
+    """Instrumented gated fused forward: ``x -> (y, occs)``.
+
+    ``occs[k]`` ([grid_in_k] int32) is the live-row count per input tile of
+    layer ``k`` — the counts the gated forward's predicates consumed.  The
+    ``torch`` lowering recomputes them with :func:`tile_occupancy`; the
+    ``kernel`` lowering takes layer 0's from ``tile_occupancy`` and layers
+    >= 1 from the gated megakernel's own occupancy output.
+    ``ExecutionPlan.measure_dynamic`` turns these into the dynamic I/O
+    report.
+    """
+    layers = list(layers)
+    activations = list(activations)
+    _check_fusible_activations(activations)
+    act = activations[0] if len(activations) > 1 else None
+    fact = activations[-1]
+    bs = flat.block
+
+    if backend == "torch":
+        segs = _flat_segments(layers, flat, activations)
+
+        def measure_torch(x):
+            h = x
+            occs = []
+            for rows, cols, blocks, scales, bias, gi, go, a in segs:
+                occ = tile_occupancy(h, bs, gi)
+                occs.append(occ)
+                h = _torch_segment(h, rows, cols, blocks, bias, bs, bs, gi,
+                                   go, a, occ=occ, scales=scales)
+            return h, tuple(occs)
+
+        return measure_torch
+
+    _check_kernel_activations([act, fact])
+    grid_ins = [lay.grid_in for lay in layers]
+
+    def measure(x):
+        occ0 = tile_occupancy(x, bs, grid_ins[0])
+        y, occ = bsr_megakernel(x, flat, act, fact, gate=True, occ0=occ0)
+        occs = (occ0,) + tuple(occ[k, :grid_ins[k + 1]]
+                               for k in range(flat.n_layers - 1))
+        return y, occs
+
+    return measure

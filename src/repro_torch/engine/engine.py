@@ -44,7 +44,12 @@ from ..kernels.ops import (
     resolve_weight_dtype,
 )
 from ..obs.trace import NULL_TRACER
-from .backends import make_forward, make_fused_forward, resolve_backend
+from .backends import (
+    make_forward,
+    make_fused_forward,
+    make_fused_measure,
+    resolve_backend,
+)
 from .plan import ExecutionPlan, IOReport
 
 #: accepted epilogue names -> the kernels' canonical name ("none" = linear)
@@ -87,7 +92,12 @@ class Engine:
       fuse: lower the whole net into one megakernel launch per forward;
         ``fuse=False`` forces per-layer dispatch.  Nets with non-uniform
         tiles fall back to per-layer dispatch.
-      gate: runtime occupancy gating — not ported yet; ``True`` raises.
+      gate: runtime tile-occupancy gating: a step whose input tile holds no
+        nonzero for any batch row is skipped (the gated megakernel on
+        ``kernel``, a masked gather on ``torch``); outputs stay
+        bit-identical, and a gated fused plan can ``measure_dynamic``.  The
+        layered ``kernel`` path has no gating and records that in
+        ``plan.fallback_reason``.
       weight_dtype: storage dtype of the streamed weight blocks: ``"f32"``,
         ``"bf16"`` or ``"fp8"`` (one f32 dequant scale per block).
       device: where plans live and run.  ``"cuda"`` (the default) needs a
@@ -121,11 +131,6 @@ class Engine:
                 "Engine(device='cuda') needs a CUDA device and none is "
                 "available; pass device='cpu' to run the kernels' plain "
                 "versions on the CPU")
-        if self.gate:
-            raise ValueError(
-                "gate=True (runtime occupancy gating) needs the gated "
-                "megakernel, which the next slice of the port brings; "
-                "compile with gate=False")
         resolve_backend(self.backend)
         resolve_weight_dtype(self.weight_dtype)
 
@@ -225,7 +230,8 @@ class Engine:
         activations: List[object] = hidden + [
             _resolve_activation(self.final_activation)]
 
-        with tr.span("compile.lower", backend=backend) as sp:
+        with tr.span("compile.lower", backend=backend,
+                     gate=self.gate) as sp:
             flat = None
             fallback_reason: Optional[str] = None
             if self.fuse:
@@ -233,10 +239,14 @@ class Engine:
                     flat = compile_flat_schedule(layers, schedules)
                 except ValueError as e:
                     fallback_reason = str(e)   # non-uniform tiles
+            measure = None
             if flat is not None:
                 try:
                     forward = make_fused_forward(layers, flat, activations,
-                                                 backend)
+                                                 backend, gate=self.gate)
+                    if self.gate:
+                        measure = make_fused_measure(layers, flat,
+                                                     activations, backend)
                 except ValueError as e:
                     # heterogeneous hidden epilogues: the megakernel fuses
                     # exactly one — record why instead of failing silently
@@ -244,7 +254,13 @@ class Engine:
                     fallback_reason = str(e)
             if flat is None:
                 forward = make_forward(layers, schedules, activations,
-                                       backend)
+                                       backend, gate=self.gate)
+                if self.gate and backend != "torch":
+                    # the reference's own words, kept for parity
+                    note = ("occupancy gating inactive on the layered "
+                            "pallas path")
+                    fallback_reason = f"{fallback_reason}; {note}" \
+                        if fallback_reason else note
             sp["fused"] = flat is not None
         if io is None:
             with tr.span("compile.io_report", policy=self.policy,
@@ -261,8 +277,10 @@ class Engine:
             io=io,
             device=self.device,
             flat=flat,
+            gate=self.gate,
             fallback_reason=fallback_reason,
             _forward=forward,
+            _measure=measure,
             compile_s=time.perf_counter() - t0,
             annealer_iters=annealer_iters,
         )

@@ -28,10 +28,13 @@ class DynamicIOReport:
 
     ``per_layer_dynamic[k]`` counts the scheduled layer-``k`` blocks whose
     input tile was live for some real batch row, next to the full
-    ``per_layer_static[k]`` schedule length; the occupancy fields say why
-    (see the reference's docstring).  Gated forwards are not ported yet, so
-    nothing in the port produces one; the class is here so serialized
-    reports round-trip.
+    ``per_layer_static[k]`` schedule length; the occupancy fields say why:
+    ``per_layer_live_tiles[k]`` of ``per_layer_in_tiles[k]`` input tiles
+    were live, ``per_layer_row_occupancy[k]`` is the mean live-row fraction
+    per tile, and ``per_layer_hist[k]`` buckets tiles by live-row fraction
+    as ``(dead, (0,.25), [.25,.5), [.5,.75), [.75,1])``.
+    ``ExecutionPlan.measure_dynamic`` produces it; ``bytes_per_block`` turns
+    block counts into the weight bytes a demand-driven stream reads.
     """
 
     batch: int
@@ -266,6 +269,9 @@ class ExecutionPlan:
     gate: bool = False                      # runtime tile-occupancy gating
     # why the plan is not (fully) what was asked for; describe() shows it
     fallback_reason: Optional[str] = None
+    # the gated fused plan's instrumented twin: x -> (y, occupancies)
+    _measure: Optional[Callable] = dataclasses.field(repr=False,
+                                                     default=None)
 
     @property
     def fused(self) -> bool:
@@ -295,6 +301,14 @@ class ExecutionPlan:
     def __call__(self, x) -> torch.Tensor:
         """Run inference.  ``x`` is ``[n_in]`` or batched ``[B, n_in]`` (a
         tensor or array); the result is a tensor on the plan's device."""
+        x, single = self._input(x)
+        y = self._forward(x)
+        self.calls += 1
+        return y[0] if single else y
+
+    def _input(self, x) -> Tuple[torch.Tensor, bool]:
+        """``x`` as a contiguous [B, n_in] tensor on the plan's device, and
+        whether it came as one row."""
         x = torch.as_tensor(x, device=self.device)
         single = x.ndim == 1
         if single:
@@ -304,33 +318,92 @@ class ExecutionPlan:
                 f"expected input [B, {self.n_in}] or [{self.n_in}], "
                 f"got {tuple(x.shape)}"
             )
-        y = self._forward(x.contiguous())
-        self.calls += 1
-        return y[0] if single else y
+        return x.contiguous(), single
 
     def with_fresh_forward(self) -> "ExecutionPlan":
         """A copy of this plan with a newly lowered forward (call count 0);
-        the schedule substrate is shared by reference."""
-        from .backends import make_forward, make_fused_forward
+        the schedule substrate is shared by reference, and a gated fused
+        plan gets a fresh measurement twin too."""
+        from .backends import (
+            make_forward,
+            make_fused_forward,
+            make_fused_measure,
+        )
 
+        measure = None
         if self.flat is not None:
             fwd = make_fused_forward(self.layers, self.flat, self.activations,
-                                     self.backend)
+                                     self.backend, gate=self.gate)
+            if self.gate:
+                measure = make_fused_measure(self.layers, self.flat,
+                                             self.activations, self.backend)
         else:
             fwd = make_forward(self.layers, self.schedules, self.activations,
-                               self.backend)
-        return dataclasses.replace(self, _forward=fwd, calls=0)
+                               self.backend, gate=self.gate)
+        return dataclasses.replace(self, _forward=fwd, _measure=measure,
+                                   calls=0)
 
     def safe_twin(self) -> "ExecutionPlan":
         """The plan's safe-mode twin: same schedule, ``torch`` backend, gate
-        off — the identical function through the simplest code path."""
+        off — the identical function through the simplest code path (the
+        ungated forward is bit-identical to the gated one)."""
         twin = dataclasses.replace(self, backend="torch", gate=False)
         return twin.with_fresh_forward()
 
     def measure_dynamic(self, x) -> DynamicIOReport:
-        raise NotImplementedError(
-            "measured dynamic I/O needs the gated megakernel, which a later "
-            "slice of the port brings (Engine(gate=True) is refused until then)")
+        """Run one instrumented gated forward on ``x`` and report measured
+        dynamic I/O: scheduled weight blocks actually consumed per layer vs
+        the static Theorem-1 schedule, plus per-layer occupancy histograms.
+        The report is also recorded on ``self.io.dynamic``.
+        """
+        if self._measure is None:
+            raise RuntimeError(
+                "dynamic I/O measurement needs a gated fused plan — compile "
+                "with Engine(gate=True) on a net the flat schedule can "
+                "express (uniform square tiles)"
+            )
+        x, _ = self._input(x)
+        _, occs = self._measure(x)
+        B = int(x.shape[0])
+        bs = self.flat.block
+        bpb = bs * bs * self.flat.blocks.element_size()
+        if self.flat.scales is not None:
+            bpb += 4                     # the per-block f32 dequant scale
+        rows = self.flat.rows.cpu().numpy()
+        stat, dyn, in_tiles, live, row_occ, hists = [], [], [], [], [], []
+        for k, (s, e) in enumerate(self.flat.segments):
+            occ = occs[k].cpu().numpy()
+            stat.append(int(e - s))
+            dyn.append(int(np.sum(occ[rows[s:e]] > 0)))
+            in_tiles.append(int(occ.size))
+            live.append(int(np.sum(occ > 0)))
+            frac = occ.astype(np.float64) / max(1, B)
+            row_occ.append(float(frac.mean()) if frac.size else 0.0)
+            alive = frac[occ > 0]
+            hist = np.histogram(alive, bins=[0.0, 0.25, 0.5, 0.75,
+                                             1.0 + 1e-9])[0]
+            hists.append((int(np.sum(occ == 0)),)
+                         + tuple(int(n) for n in hist))
+        report = DynamicIOReport(
+            batch=B,
+            per_layer_static=tuple(stat),
+            per_layer_dynamic=tuple(dyn),
+            per_layer_in_tiles=tuple(in_tiles),
+            per_layer_live_tiles=tuple(live),
+            per_layer_row_occupancy=tuple(row_occ),
+            per_layer_hist=tuple(hists),
+            bytes_per_block=int(bpb),
+            weight_dtype=self.flat.weight_dtype,
+        )
+        self.io = dataclasses.replace(self.io, dynamic=report)
+        return report
+
+    def trace_attrs(self) -> dict:
+        """Flat span-attribute dict of this plan's I/O profile (backend,
+        fusion/gating, simulated tile I/O vs the Theorem-1 lower bound, the
+        latest measured dynamic reads): ``obs.telemetry.plan_io_attrs``."""
+        from ..obs.telemetry import plan_io_attrs
+        return plan_io_attrs(self)
 
     def describe(self) -> str:
         shapes = " -> ".join(

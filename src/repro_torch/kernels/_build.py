@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels: ``nvcc`` into a shared library, ctypes.
 
-The library is compiled at first use from ``csrc/bsr_kernels.cu`` for
+The library is compiled at first use from the ``csrc/*.cu`` sources for
 ``sm_90a`` (a plain C interface, no PyTorch headers: seconds, not minutes)
 into ``kernels/build/`` beside this file — a directory git ignores — under a
-name keyed by a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is reused.  Nothing here runs at import time.
+name keyed by a hash of the sources, headers and flags, so an edited source
+builds anew and an unchanged one is reused.  Each source compiles in its own
+``nvcc`` process, all started together, and one more links the objects.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,11 +20,13 @@ import time
 from pathlib import Path
 from typing import Optional, Tuple
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "bsr_kernels.cu",)
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "bsr_kernels.cu", CSRC / "moe_ffn.cu")
+HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",              # registers, shared memory, spills
 )
 
@@ -33,9 +37,11 @@ _SIGNATURES = {
     # B, n_in, n_out, bm, bn, n_runs, act, stream
     "bsr_matmul_launch": [_I, _I] + [_P] * 8 + [_I] * 7 + [_P],
     # x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, layer_runs,
-    # bias_idx, bias_tiles, scales, hidden, out, B, n_in, n_out, bs,
-    # n_layers, hidden_tiles, max_layer_runs, act, final_act, stream
-    "bsr_megakernel_launch": [_I, _I] + [_P] * 11 + [_I] * 9 + [_P],
+    # bias_idx, bias_tiles, scales, occ0, occ, hidden, out, B, n_in, n_out,
+    # bs, n_layers, hidden_tiles, max_layer_runs, act, final_act, stream
+    "bsr_megakernel_launch": [_I, _I] + [_P] * 13 + [_I] * 9 + [_P],
+    # dtype, x, w_up, w_down, out, E, C, d, f, f_tile, act, stream
+    "moe_ffn_launch": [_I] + [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -55,7 +61,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"bsr_kernels_{h.hexdigest()[:16]}.so"
 
@@ -71,16 +77,38 @@ def build() -> Tuple[Path, float, str]:
     if so.exists():
         return so, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)   # atomic: a concurrent build sees all or nothing
-    return so, seconds, proc.stdout + proc.stderr
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(SOURCES, objs))]
+    logs = []
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is None:
+        tmp = so.with_name(f"{tag}.tmp.so")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append(proc.stdout)
+        if proc.returncode:
+            failed = (cmd, proc.returncode, proc.stdout)
+        else:
+            os.replace(tmp, so)   # atomic: a concurrent build sees all or nothing
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed with exit code {rc}:\n"
+                           f"{' '.join(cmd)}\n{out}")
+    return so, time.perf_counter() - t0, "".join(logs)
 
 
 def load() -> ctypes.CDLL:

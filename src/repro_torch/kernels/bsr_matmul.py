@@ -3,7 +3,8 @@
 ``bsr_matmul`` replaces the Pallas kernel
 ``repro.kernels.bsr_matmul.bsr_matmul`` (one layer per launch) and
 ``bsr_megakernel`` replaces ``repro.kernels.bsr_matmul.bsr_megakernel`` (the
-whole net per launch).  Both are CUDA C++ for ``sm_90a`` in
+whole net per launch), ungated and, with ``gate=True``, gated on runtime
+tile occupancy.  Both are CUDA C++ for ``sm_90a`` in
 ``csrc/bsr_kernels.cu``, built by ``_build`` with ``nvcc`` at first use and
 bound through ctypes.  The source's header notes what bounds each kernel on
 the H100 and what its design does about it.
@@ -18,7 +19,8 @@ run.  Their products assume PyTorch's default full-f32 matmul
 (``torch.backends.cuda.matmul.allow_tf32`` False).
 
 ``bsr_matmul.launches`` / ``bsr_megakernel.launches`` count kernel launches
-(plain-version calls are not counted); ``reset_launches()`` zeroes both.
+and ``bsr_megakernel.gated_launches`` the gated megakernel's (plain-version
+calls are not counted); ``reset_launches()`` zeroes all three.
 """
 
 from __future__ import annotations
@@ -97,9 +99,10 @@ def activation_code(act: Activation) -> int:
 
 
 def reset_launches() -> None:
-    """Zero both kernels' launch counts."""
+    """Zero the kernels' launch counts."""
     bsr_matmul.launches = 0
     bsr_megakernel.launches = 0
+    bsr_megakernel.gated_launches = 0
 
 
 def _dequant(blocks: torch.Tensor, scales: Optional[torch.Tensor]):
@@ -121,7 +124,7 @@ def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
             raise ValueError(f"{name}: {key} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    for key in ("rows", "cols", "run_ptr", "layer_runs", "bias_idx"):
+    for key in ("rows", "cols", "run_ptr", "layer_runs", "bias_idx", "occ0"):
         t = tensors.get(key)
         if t is not None and t.dtype != torch.int32:
             raise ValueError(f"{name}: {key} must be int32, got {t.dtype}")
@@ -222,10 +225,14 @@ bsr_matmul.launches = 0
 
 def bsr_megakernel_plain(x: torch.Tensor, flat,
                          activation: Activation = "none",
-                         final_activation: Activation = "none"
-                         ) -> torch.Tensor:
+                         final_activation: Activation = "none",
+                         gate: bool = False,
+                         occ0: Optional[torch.Tensor] = None):
     """Plain version of ``bsr_megakernel``: the flat schedule walked step by
-    step, hidden tiles kept in two f32 ping-pong buffers."""
+    step, hidden tiles kept in two f32 ping-pong buffers.  With ``gate`` a
+    step whose input tile has occupancy 0 skips its product, each hidden
+    epilogue counts the live rows of the tile it wrote, and the result is
+    ``(y, occ)``."""
     B = x.shape[0]
     bs = flat.block
     w = _dequant(flat.blocks, flat.scales)
@@ -234,6 +241,10 @@ def bsr_megakernel_plain(x: torch.Tensor, flat,
                       device=x.device)
     hidden = torch.zeros((2, flat.hidden_tiles, B, bs), dtype=torch.float32,
                          device=x.device)
+    if gate:
+        occ = torch.zeros((max(1, flat.n_layers - 1), flat.hidden_tiles),
+                          dtype=torch.int32, device=x.device)
+        occ_in = [occ0.tolist()] + [None] * (flat.n_layers - 1)
     lids, rows, cols = (flat.layer_id.tolist(), flat.rows.tolist(),
                         flat.cols.tolist())
     first, last = flat.first.tolist(), flat.last.tolist()
@@ -243,9 +254,12 @@ def bsr_megakernel_plain(x: torch.Tensor, flat,
     for g, (lid, r) in enumerate(zip(lids, rows)):
         if first[g]:
             acc = torch.zeros((B, bs), dtype=torch.float32, device=x.device)
-        src = xf[:, r * bs:(r + 1) * bs] if lid == 0 \
-            else hidden[(lid - 1) % 2, r]
-        acc = acc + src @ w[g]
+        if gate and occ_in[lid] is None:     # layer lid-1 is complete
+            occ_in[lid] = occ[lid - 1].tolist()
+        if not gate or occ_in[lid][r] > 0:
+            src = xf[:, r * bs:(r + 1) * bs] if lid == 0 \
+                else hidden[(lid - 1) % 2, r]
+            acc = acc + src @ w[g]
         if last[g]:
             c = cols[g]
             y = acc + flat.bias_tiles[bias_idx[g]]
@@ -253,37 +267,56 @@ def bsr_megakernel_plain(x: torch.Tensor, flat,
                 out[:, c * bs:(c + 1) * bs] = \
                     apply_activation(y, final_activation).to(x.dtype)
             else:
-                hidden[lid % 2, c] = apply_activation(y, activation)
-    return out
+                h = apply_activation(y, activation)
+                hidden[lid % 2, c] = h
+                if gate:                     # rows with any nonzero
+                    occ[lid, c] = (h != 0).any(dim=1).sum()
+    return (out, occ) if gate else out
 
 
 def bsr_megakernel(x: torch.Tensor, flat,
                    activation: Activation = "none",
-                   final_activation: Activation = "none") -> torch.Tensor:
+                   final_activation: Activation = "none",
+                   gate: bool = False,
+                   occ0: Optional[torch.Tensor] = None):
     """The whole net of a ``FlatSchedule`` in one launch.
 
     ``activation`` is the one hidden epilogue, ``final_activation`` the last
     layer's.  ``x`` [B, n_in] is float32 or bfloat16 (any B); the output is
     [B, grid_out_final * block] in ``x.dtype``.  The f32 hidden ping-pong
     buffer [2, hidden_tiles, B, block] is allocated here with ``torch.empty``.
+
+    With ``gate=True`` the call takes ``occ0`` (int32 [grid_in_0], the
+    live-row counts of x's input tiles, on x's device) and returns
+    ``(y, occ)``: ``occ`` (int32 [max(1, n_layers-1), hidden_tiles]) holds
+    the live-row counts of every hidden tile, as the kernel measured them
+    and gated on.  ``y`` is bit-identical to the ungated output.  ``occ``
+    is allocated with ``torch.zeros``, since the kernel adds into it.
     """
     B, n_in = x.shape
     bs = flat.block
     if n_in % bs:
         raise ValueError("n_in must be a multiple of the block size")
+    grid_in0 = n_in // bs
+    if gate and (occ0 is None or tuple(occ0.shape) != (grid_in0,)):
+        raise ValueError(f"bsr_megakernel: gate=True needs occ0 of shape "
+                         f"[{grid_in0}]")
     if x.device.type == "cpu":
-        return bsr_megakernel_plain(x, flat, activation, final_activation)
+        return bsr_megakernel_plain(x, flat, activation, final_activation,
+                                    gate, occ0)
     act = activation_code(activation)
     fact = activation_code(final_activation)
     _check_cuda("bsr_megakernel", x, dict(
         blocks=flat.blocks, rows=flat.rows, cols=flat.cols,
         run_ptr=flat.run_ptr, layer_runs=flat.layer_runs,
         bias_idx=flat.bias_idx, bias_tiles=flat.bias_tiles,
-        scales=flat.scales, x=x))
+        scales=flat.scales, x=x, occ0=occ0 if gate else None))
     n_out = flat.grid_out_final * bs
     out = torch.empty((B, n_out), dtype=x.dtype, device=x.device)
+    occ = torch.zeros((max(1, flat.n_layers - 1), flat.hidden_tiles),
+                      dtype=torch.int32, device=x.device) if gate else None
     if B == 0:
-        return out
+        return (out, occ) if gate else out
     hidden = torch.empty((2, flat.hidden_tiles, B, bs), dtype=torch.float32,
                          device=x.device)
     scales = flat.scales
@@ -294,14 +327,20 @@ def bsr_megakernel(x: torch.Tensor, flat,
         flat.layer_runs.data_ptr(), flat.bias_idx.data_ptr(),
         flat.bias_tiles.data_ptr(),
         None if scales is None else scales.data_ptr(),
+        occ0.data_ptr() if gate else None,
+        occ.data_ptr() if gate else None,
         hidden.data_ptr(), out.data_ptr(), B, n_in, n_out, bs,
         flat.n_layers, flat.hidden_tiles, flat.max_layer_runs, act, fact,
         _stream())
     if rc:
         raise RuntimeError(
             f"bsr_megakernel: kernel launch failed, CUDA error {rc}")
+    if gate:
+        bsr_megakernel.gated_launches += 1
+        return out, occ
     bsr_megakernel.launches += 1
     return out
 
 
 bsr_megakernel.launches = 0
+bsr_megakernel.gated_launches = 0

@@ -8,7 +8,9 @@
 // bsr_megakernel_kernel replaces the Pallas kernel bsr_megakernel (same
 // file, `bsr_megakernel` / body `_megakernel`, ungated): the whole net in one
 // launch over the flat cross-layer schedule, one hidden epilogue and one
-// final epilogue.
+// final epilogue.  Its gated instance (Gate = true) replaces the same Pallas
+// kernel with gate=True (gating at bsr_matmul.py:208-217, occupancy counts
+// at :258-262): see "Gating" below.
 //
 // What bounds them on the H100.  Both stream every scheduled weight block
 // from device memory once; at the paper's BERT-large FFNN (1024 -> 4096 ->
@@ -46,16 +48,33 @@
 // with __stcg/__ldcg (L2, bypassing the per-SM L1), since other CTAs of the
 // same launch produce it.
 //
+// Gating.  The gated megakernel takes occ0 [grid_in_0] (live-row counts of
+// x's input tiles, computed by the wrapper on the card) and fills occ
+// [max(1, n_layers-1), hidden_tiles], which the wrapper zeroes with
+// torch.zeros (one memset launch; zeroing in the kernel would need its own
+// grid.sync()).  A step whose input tile has occupancy 0 skips the input
+// staging, the weight-block read and the product: the skipped contribution
+// is fmaf(+-0, w, acc) == acc for finite w, so the gated output is
+// bit-identical to the ungated one, and the weight bytes of dead steps are
+// never read (the TPU pipeline still streamed them; here the read is what
+// gating saves).  The epilogue always runs, so an all-dead run still writes
+// act(bias).  Each non-final epilogue counts, per batch row b0+i < B of its
+// chunk, whether any column of the tile it wrote is nonzero
+// (__syncthreads_or per row, so the answer spans all columns of the CTA),
+// and thread 0 atomicAdds the live-row count into occ[k][c]: a tile's count
+// sums over the row chunks that different CTAs own.  Rows past B never
+// count (the reference's valid_b).  Layer k+1 reads occ[k] only after the
+// layer's grid.sync(), through L2 (__ldcg), since other CTAs wrote it.
+//
 // Every launch goes on the caller's stream, allocates nothing and returns
 // cudaGetLastError() (or the launch API's own error).
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -63,56 +82,6 @@ namespace {
 
 constexpr int kThreads = 128;  // one thread per column of a 128-wide tile
 constexpr int kRows = 8;       // batch rows per work item
-
-// keep in step with ACTIVATIONS in kernels/bsr_matmul.py
-enum Act {
-  kNone = 0,
-  kRelu = 1,
-  kGelu = 2,
-  kTanh = 3,
-  kSigmoid = 4,
-  kSilu = 5,
-  kSquaredRelu = 6,
-};
-
-__device__ __forceinline__ float activate(float y, int act) {
-  switch (act) {
-    case kRelu:
-      return fmaxf(y, 0.f);
-    case kGelu: {  // the tanh form, as jax.nn.gelu's default
-      const float kSqrt2OverPi = 0.7978845608028654f;
-      const float kKappa = 0.044715f;
-      const float inner = kSqrt2OverPi * (y + kKappa * y * y * y);
-      return 0.5f * y * (1.f + tanhf(inner));
-    }
-    case kTanh:
-      return tanhf(y);
-    case kSigmoid:
-      return 1.f / (1.f + expf(-y));
-    case kSilu:
-      return y / (1.f + expf(-y));
-    case kSquaredRelu: {
-      const float r = fmaxf(y, 0.f);
-      return r * r;
-    }
-    default:
-      return y;
-  }
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) {
-  const __half_raw h = __nv_cvt_fp8_to_halfraw(v.__x, __NV_E4M3);
-  return __half2float(__half(h));
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // x [B, n_in]: element k of input tile r for batch row b
 template <typename XT>
@@ -158,15 +127,19 @@ struct HiddenSink {
 // One output-tile run (schedule steps g0..g1-1, all with output tile c) for
 // batch rows b0 .. b0+kRows-1 that are < B.  xs: kRows * bm floats of shared
 // memory.  Every thread of the CTA calls this with the same arguments.
-template <typename WT, typename Src, typename Dst>
+// Gate: skip the steps whose input tile r has occ_in[r] == 0 and, when
+// occ_out is not null, add the chunk's live-row count of tile c to
+// occ_out[c].
+template <bool Gate, typename WT, typename Src, typename Dst>
 __device__ void run_tile(const Src& src, const Dst& dst,
                          const WT* __restrict__ blocks,
                          const float* __restrict__ scales,
                          const int* __restrict__ rows, int g0, int g1, int c,
                          int bm, int bn, int B, int b0,
                          const float* __restrict__ bias_tile, int act,
-                         float* xs) {
+                         float* xs, const int* occ_in, int* occ_out) {
   const size_t block_elems = (size_t)bm * bn;
+  unsigned live = 0;  // Gate: bit i set when row b0+i has a nonzero in tile c
   for (int n0 = 0; n0 < bn; n0 += blockDim.x) {
     const int n = n0 + threadIdx.x;
     const bool active = n < bn;
@@ -176,6 +149,11 @@ __device__ void run_tile(const Src& src, const Dst& dst,
     int cur = -1;
     for (int g = g0; g < g1; ++g) {
       const int r = rows[g];
+      if constexpr (Gate) {
+        // a dead input tile: no staging, no weight read, no product (the
+        // same value for every thread, so the branch is uniform)
+        if (__ldcg(occ_in + r) == 0) continue;
+      }
       if (r != cur) {  // stage the input tile only when rows[g] changes
         __syncthreads();
         for (int e = threadIdx.x; e < kRows * bm; e += blockDim.x) {
@@ -204,6 +182,21 @@ __device__ void run_tile(const Src& src, const Dst& dst,
         if (b0 + i < B) dst(b0 + i, c, n, activate(acc[i] + bv, act));
       }
     }
+    if constexpr (Gate) {
+      if (occ_out != nullptr) {  // the same value the epilogue stored
+        const float bv = active ? bias_tile[n] : 0.f;
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const bool nz =
+              active && b0 + i < B && activate(acc[i] + bv, act) != 0.f;
+          if (__syncthreads_or(nz)) live |= 1u << i;
+        }
+      }
+    }
+  }
+  if constexpr (Gate) {
+    if (occ_out != nullptr && threadIdx.x == 0 && live != 0)
+      atomicAdd(occ_out + c, __popc(live));
   }
 }
 
@@ -220,20 +213,23 @@ __global__ void __launch_bounds__(kThreads)
   const int g0 = run_ptr[run];
   const int g1 = run_ptr[run + 1];
   const int c = cols[g0];
-  run_tile(XSource<XT>{x, n_in, bm}, OutSink<XT>{out, n_out, bn}, blocks,
-           scales, rows, g0, g1, c, bm, bn, B, blockIdx.y * kRows,
-           bias + (size_t)c * bn, act, xs);
+  run_tile<false>(XSource<XT>{x, n_in, bm}, OutSink<XT>{out, n_out, bn},
+                  blocks, scales, rows, g0, g1, c, bm, bn, B,
+                  blockIdx.y * kRows, bias + (size_t)c * bn, act, xs, nullptr,
+                  nullptr);
 }
 
-template <typename XT, typename WT>
+// occ0 [grid_in_0] and occ [max(1, n_layers-1), hidden_tiles]: read and
+// written by the Gate instance only (null otherwise)
+template <bool Gate, typename XT, typename WT>
 __global__ void __launch_bounds__(kThreads) bsr_megakernel_kernel(
     const XT* __restrict__ x, const WT* __restrict__ blocks,
     const int* __restrict__ rows, const int* __restrict__ cols,
     const int* __restrict__ run_ptr, const int* __restrict__ layer_runs,
     const int* __restrict__ bias_idx, const float* __restrict__ bias_tiles,
-    const float* __restrict__ scales, float* hidden, XT* __restrict__ out,
-    int B, int n_in, int n_out, int bs, int n_layers, int hidden_tiles,
-    int act, int final_act) {
+    const float* __restrict__ scales, const int* occ0, int* occ,
+    float* hidden, XT* __restrict__ out, int B, int n_in, int n_out, int bs,
+    int n_layers, int hidden_tiles, int act, int final_act) {
   extern __shared__ float xs[];
   cg::grid_group grid = cg::this_grid();
   const int chunks = (B + kRows - 1) / kRows;
@@ -245,6 +241,12 @@ __global__ void __launch_bounds__(kThreads) bsr_megakernel_kernel(
     const int a = is_final ? final_act : act;
     float* h_out = hidden + (size_t)(k % 2) * hbuf;
     const HiddenSource h_in{hidden + (size_t)((k + 1) % 2) * hbuf, B, bs};
+    const int* occ_in = nullptr;
+    int* occ_out = nullptr;
+    if (Gate) {
+      occ_in = k == 0 ? occ0 : occ + (size_t)(k - 1) * hidden_tiles;
+      if (!is_final) occ_out = occ + (size_t)k * hidden_tiles;
+    }
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
       const int run = run0 + it / chunks;
       const int b0 = (it % chunks) * kRows;
@@ -255,21 +257,26 @@ __global__ void __launch_bounds__(kThreads) bsr_megakernel_kernel(
       if (k == 0) {
         const XSource<XT> src{x, n_in, bs};
         if (is_final) {
-          run_tile(src, OutSink<XT>{out, n_out, bs}, blocks, scales, rows, g0,
-                   g1, c, bs, bs, B, b0, bias, a, xs);
+          run_tile<Gate>(src, OutSink<XT>{out, n_out, bs}, blocks, scales,
+                         rows, g0, g1, c, bs, bs, B, b0, bias, a, xs, occ_in,
+                         occ_out);
         } else {
-          run_tile(src, HiddenSink{h_out, B, bs}, blocks, scales, rows, g0,
-                   g1, c, bs, bs, B, b0, bias, a, xs);
+          run_tile<Gate>(src, HiddenSink{h_out, B, bs}, blocks, scales, rows,
+                         g0, g1, c, bs, bs, B, b0, bias, a, xs, occ_in,
+                         occ_out);
         }
       } else if (is_final) {
-        run_tile(h_in, OutSink<XT>{out, n_out, bs}, blocks, scales, rows, g0,
-                 g1, c, bs, bs, B, b0, bias, a, xs);
+        run_tile<Gate>(h_in, OutSink<XT>{out, n_out, bs}, blocks, scales,
+                       rows, g0, g1, c, bs, bs, B, b0, bias, a, xs, occ_in,
+                       occ_out);
       } else {
-        run_tile(h_in, HiddenSink{h_out, B, bs}, blocks, scales, rows, g0, g1,
-                 c, bs, bs, B, b0, bias, a, xs);
+        run_tile<Gate>(h_in, HiddenSink{h_out, B, bs}, blocks, scales, rows,
+                       g0, g1, c, bs, bs, B, b0, bias, a, xs, occ_in,
+                       occ_out);
       }
     }
-    if (!is_final) grid.sync();  // layer k's hidden tiles are complete
+    // layer k's hidden tiles (and, gated, their occupancy) are complete
+    if (!is_final) grid.sync();
   }
 }
 
@@ -294,16 +301,17 @@ cudaError_t launch_matmul(const void* x, const void* blocks, const int* rows,
   return cudaGetLastError();
 }
 
-template <typename XT, typename WT>
+template <bool Gate, typename XT, typename WT>
 cudaError_t launch_megakernel(const void* x_, const void* blocks_,
                               const int* rows, const int* cols,
                               const int* run_ptr, const int* layer_runs,
                               const int* bias_idx, const float* bias_tiles,
-                              const float* scales, float* hidden, void* out_,
-                              int B, int n_in, int n_out, int bs, int n_layers,
+                              const float* scales, const int* occ0, int* occ,
+                              float* hidden, void* out_, int B, int n_in,
+                              int n_out, int bs, int n_layers,
                               int hidden_tiles, int max_layer_runs, int act,
                               int final_act, cudaStream_t stream) {
-  auto kernel = bsr_megakernel_kernel<XT, WT>;
+  auto kernel = bsr_megakernel_kernel<Gate, XT, WT>;
   const size_t smem = (size_t)kRows * bs * sizeof(float);
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -327,15 +335,42 @@ cudaError_t launch_megakernel(const void* x_, const void* blocks_,
   const XT* x = static_cast<const XT*>(x_);
   const WT* blocks = static_cast<const WT*>(blocks_);
   XT* out = static_cast<XT*>(out_);
-  void* args[] = {&x,      &blocks, &rows,     &cols,         &run_ptr,
-                  &layer_runs,      &bias_idx, &bias_tiles,   &scales,
-                  &hidden, &out,    &B,        &n_in,         &n_out,
-                  &bs,     &n_layers,          &hidden_tiles, &act,
-                  &final_act};
+  void* args[] = {&x,          &blocks,   &rows,       &cols,   &run_ptr,
+                  &layer_runs, &bias_idx, &bias_tiles, &scales, &occ0,
+                  &occ,        &hidden,   &out,        &B,      &n_in,
+                  &n_out,      &bs,       &n_layers,   &hidden_tiles,
+                  &act,        &final_act};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
                                     dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool Gate>
+int megakernel_dispatch(int x_dtype, int w_dtype, const void* x,
+                        const void* blocks, const int* rows, const int* cols,
+                        const int* run_ptr, const int* layer_runs,
+                        const int* bias_idx, const float* bias_tiles,
+                        const float* scales, const int* occ0, int* occ,
+                        float* hidden, void* out, int B, int n_in, int n_out,
+                        int bs, int n_layers, int hidden_tiles,
+                        int max_layer_runs, int act, int final_act,
+                        cudaStream_t s) {
+#define BSR_MEGA(XT, WT)                                                     \
+  return (int)launch_megakernel<Gate, XT, WT>(                              \
+      x, blocks, rows, cols, run_ptr, layer_runs, bias_idx, bias_tiles,     \
+      scales, occ0, occ, hidden, out, B, n_in, n_out, bs, n_layers,         \
+      hidden_tiles, max_layer_runs, act, final_act, s)
+  switch (x_dtype * 3 + w_dtype) {
+    case 0: BSR_MEGA(float, float);
+    case 1: BSR_MEGA(float, __nv_bfloat16);
+    case 2: BSR_MEGA(float, __nv_fp8_e4m3);
+    case 3: BSR_MEGA(__nv_bfloat16, float);
+    case 4: BSR_MEGA(__nv_bfloat16, __nv_bfloat16);
+    case 5: BSR_MEGA(__nv_bfloat16, __nv_fp8_e4m3);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BSR_MEGA
 }
 
 }  // namespace
@@ -365,27 +400,25 @@ extern "C" int bsr_matmul_launch(int x_dtype, int w_dtype, const void* x,
 #undef BSR_MATMUL
 }
 
+// Gated when occ is not null: then occ0 [grid_in_0] is read and occ
+// [max(1, n_layers-1), hidden_tiles], zeroed by the caller, is filled.
 extern "C" int bsr_megakernel_launch(
     int x_dtype, int w_dtype, const void* x, const void* blocks,
     const int* rows, const int* cols, const int* run_ptr,
     const int* layer_runs, const int* bias_idx, const float* bias_tiles,
-    const float* scales, float* hidden, void* out, int B, int n_in, int n_out,
-    int bs, int n_layers, int hidden_tiles, int max_layer_runs, int act,
-    int final_act, void* stream) {
+    const float* scales, const int* occ0, int* occ, float* hidden, void* out,
+    int B, int n_in, int n_out, int bs, int n_layers, int hidden_tiles,
+    int max_layer_runs, int act, int final_act, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BSR_MEGA(XT, WT)                                                     \
-  return (int)launch_megakernel<XT, WT>(                                    \
-      x, blocks, rows, cols, run_ptr, layer_runs, bias_idx, bias_tiles,     \
-      scales, hidden, out, B, n_in, n_out, bs, n_layers, hidden_tiles,      \
-      max_layer_runs, act, final_act, s)
-  switch (x_dtype * 3 + w_dtype) {
-    case 0: BSR_MEGA(float, float);
-    case 1: BSR_MEGA(float, __nv_bfloat16);
-    case 2: BSR_MEGA(float, __nv_fp8_e4m3);
-    case 3: BSR_MEGA(__nv_bfloat16, float);
-    case 4: BSR_MEGA(__nv_bfloat16, __nv_bfloat16);
-    case 5: BSR_MEGA(__nv_bfloat16, __nv_fp8_e4m3);
-    default: return (int)cudaErrorInvalidValue;
+  if (occ != nullptr) {
+    if (occ0 == nullptr) return (int)cudaErrorInvalidValue;
+    return megakernel_dispatch<true>(
+        x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, layer_runs,
+        bias_idx, bias_tiles, scales, occ0, occ, hidden, out, B, n_in, n_out,
+        bs, n_layers, hidden_tiles, max_layer_runs, act, final_act, s);
   }
-#undef BSR_MEGA
+  return megakernel_dispatch<false>(
+      x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, layer_runs, bias_idx,
+      bias_tiles, scales, nullptr, nullptr, hidden, out, B, n_in, n_out, bs,
+      n_layers, hidden_tiles, max_layer_runs, act, final_act, s);
 }

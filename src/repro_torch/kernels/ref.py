@@ -42,3 +42,23 @@ def bsr_matmul_ref(
     y = x.float() @ w.float().to(x.device)
     y = y + bias.float().to(x.device)
     return apply_activation(y, activation).to(x.dtype)
+
+
+def moe_gemm_ref(
+    x: torch.Tensor,          # [tokens, d]
+    w_up: torch.Tensor,       # [experts, d, f]
+    w_down: torch.Tensor,     # [experts, f, d]
+    assign: torch.Tensor,     # [tokens, k] expert ids
+    gates: torch.Tensor,      # [tokens, k]
+    activation: Union[str, Callable, None],
+) -> torch.Tensor:
+    """Oracle for the grouped expert FFN: sum_k g_k * FFN_{e_k}(x)."""
+    x32 = x.float()
+    out = torch.zeros_like(x32)
+    for k in range(assign.shape[1]):
+        e = assign[:, k].long()
+        up = torch.einsum("td,tdf->tf", x32, w_up.float()[e])
+        h = apply_activation(up, activation)
+        dn = torch.einsum("tf,tfd->td", h, w_down.float()[e])
+        out = out + gates[:, k:k + 1].float() * dn
+    return out.to(x.dtype)

@@ -8,8 +8,11 @@ the paper's BERT-large encoder FFNN, 1024 -> 4096 -> 1024, density 0.1,
 iterations — compiled once by the engine, fanned out across power-of-two
 batch buckets, and served by the step-driven wait-or-fire scheduler.  Every
 forward is one ``bsr_megakernel`` launch; ``--no-fuse`` runs one
-``bsr_matmul`` launch per layer instead.  ``--device cpu`` runs the
-kernels' plain versions on the CPU.
+``bsr_matmul`` launch per layer instead.  ``--gate`` compiles with runtime
+tile-occupancy gating (each forward is one launch of the gated megakernel),
+samples the measured dynamic I/O of every batch into the server's
+``IOTelemetry``, and prints the dynamic I/O report of one batch after
+serving.  ``--device cpu`` runs the kernels' plain versions on the CPU.
 
 Port of ``repro.launch.serve --sparse-ffnn`` (its step-driven mode); the
 same request stream comes from the same numpy seed.
@@ -55,8 +58,8 @@ def build_server(args) -> Tuple[BucketedPlanSet, SparseServer]:
     """Compile the net into a warmed bucketed plan set and its server."""
     engine = Engine(activation="gelu", reorder=True,
                     reorder_iters=args.reorder_iters,
-                    fuse=not args.no_fuse, weight_dtype=args.weight_dtype,
-                    device=args.device)
+                    fuse=not args.no_fuse, gate=args.gate,
+                    weight_dtype=args.weight_dtype, device=args.device)
     layers = make_ffnn_layers(args.ffnn_sizes, args.density, args.block)
     t0 = time.time()
     plans = BucketedPlanSet.compile(layers, engine=engine,
@@ -64,8 +67,11 @@ def build_server(args) -> Tuple[BucketedPlanSet, SparseServer]:
     print(f"engine compile: {time.time() - t0:.1f}s [cold] — "
           f"{plans.describe()}")
     plans.warmup()
+    # gating makes the measured dynamic-I/O path available: sample every
+    # batch into the server's I/O telemetry
     server = SparseServer(plans, max_queue=args.max_queue,
-                          slo_ms=args.slo_ms)
+                          slo_ms=args.slo_ms,
+                          measure_dynamic_every=1 if args.gate else 0)
     return plans, server
 
 
@@ -103,6 +109,14 @@ def serve_sparse_ffnn(args) -> ServeReport:
           f"({collected} collected) — {server.metrics.summary()}")
     print(f"bucket calls: "
           f"{ {b: n for b, n in plans.bucket_calls.items() if n} }")
+    base = plans.base
+    if args.gate and base._measure is not None:
+        # measured dynamic I/O of one representative batch: how many
+        # scheduled weight blocks a demand-driven stream actually read
+        rng = np.random.default_rng(1)
+        xs = rng.standard_normal((min(args.batch, 8), base.n_in)).astype(
+            np.float32)
+        print(base.measure_dynamic(xs).summary())
     return report
 
 
@@ -126,6 +140,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--no-fuse", action="store_true",
                     help="serve with per-layer dispatch (one bsr_matmul "
                          "launch per layer) instead of the megakernel")
+    ap.add_argument("--gate", action="store_true",
+                    help="runtime tile-occupancy gating: skip weight blocks "
+                         "whose input tile is all-zero for the batch "
+                         "(bit-exact; prints the measured dynamic I/O report "
+                         "after serving)")
     ap.add_argument("--weight-dtype", default="f32",
                     choices=("f32", "bf16", "fp8"),
                     help="storage dtype of the streamed weight blocks "

@@ -1,11 +1,13 @@
-"""Observability substrate of the port: the span recorder and bounded series.
+"""Observability substrate of the port: spans, bounded series, I/O telemetry.
 
-Both modules are verbatim copies of ``repro.obs.trace`` and
-``repro.obs.series`` (stdlib and numpy only).  Telemetry and Prometheus
-exposition are not ported yet.
+``trace``, ``series`` and ``telemetry`` are verbatim copies of
+``repro.obs.trace``, ``repro.obs.series`` and ``repro.obs.telemetry``
+(stdlib and numpy only).  Prometheus exposition is not ported yet.
 """
 
 from .series import BoundedSeries
+from .telemetry import OCC_BINS, IOTelemetry, plan_io_attrs
 from .trace import NULL_TRACER, Span, Tracer
 
-__all__ = ["BoundedSeries", "NULL_TRACER", "Span", "Tracer"]
+__all__ = ["BoundedSeries", "IOTelemetry", "NULL_TRACER", "OCC_BINS", "Span",
+           "Tracer", "plan_io_attrs"]

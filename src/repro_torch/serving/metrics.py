@@ -41,6 +41,7 @@ class ServingMetrics:
     batched_rows: int = 0
     deadline_misses: int = 0
     results_evicted: int = 0
+    io_measure_failed: int = 0      # dynamic-I/O samples that raised
     latency_s: BoundedSeries = dataclasses.field(default_factory=BoundedSeries)
     queue_wait_s: BoundedSeries = dataclasses.field(
         default_factory=BoundedSeries)
@@ -93,6 +94,11 @@ class ServingMetrics:
         with self._mu:
             self.results_evicted += n
 
+    def record_measure_failed(self) -> None:
+        """One dynamic-I/O measurement raised (the batch itself was served)."""
+        with self._mu:
+            self.io_measure_failed += 1
+
     @staticmethod
     def _quantiles_ms(s: BoundedSeries) -> dict:
         return {
@@ -114,6 +120,7 @@ class ServingMetrics:
                 "batches": self.batches,
                 "deadline_misses": self.deadline_misses,
                 "results_evicted": self.results_evicted,
+                "io_measure_failed": self.io_measure_failed,
                 "throughput_rps": self.served / span if span > 0 else 0.0,
                 "latency_ms": self._quantiles_ms(self.latency_s),
                 "queue_wait_ms": self._quantiles_ms(self.queue_wait_s),

@@ -11,13 +11,20 @@ job is batch formation under a latency SLO:
     request's deadline minus the per-bucket EWMA batch latency says firing
     any later would miss it;
   * **bucket routing** — a fired batch of n rows runs through the smallest
-    plan bucket >= n.
+    plan bucket >= n;
+  * **I/O telemetry** — ``self.io`` (an ``obs.telemetry.IOTelemetry``)
+    records each bucket's static plan gauges after its first batch and, every
+    ``measure_dynamic_every`` batches on a gated fused plan, the batch's
+    measured dynamic I/O (``ExecutionPlan.measure_dynamic``).  A measurement
+    that raises never fails the batch: it becomes an ``io.measure_failed``
+    trace event and counts in ``metrics.io_measure_failed``.
 
 The caller drives ``step``/``poll``/``drain`` and collects with
 ``result(rid)``; with an injected ``clock`` the schedule is deterministic.
 The async scheduler thread, executor pool, model router, hot swap, circuit
-breaker and watchdog of the reference are not ported yet.  A batch whose
-plan call raises propagates the error to the caller of ``step``.
+breaker, watchdog and snapshot of the reference are not ported yet.  A
+batch whose plan call raises propagates the error to the caller of
+``step``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..obs.telemetry import IOTelemetry
+from ..obs.trace import NULL_TRACER
 from .bucketing import BucketedPlanSet
 from .metrics import ServingMetrics
 
@@ -57,6 +66,11 @@ class SparseServer:
       clock: monotonic time source; injectable for deterministic tests.
       result_capacity: finished results retained for collection; beyond it
         the oldest uncollected result is evicted (``metrics.results_evicted``).
+      tracer: a ``repro_torch.obs.Tracer`` receiving the ``io.measure`` /
+        ``io.measure_failed`` events (default: the disabled tracer).
+      measure_dynamic_every: sample measured dynamic I/O every N batches and
+        fold it into ``self.io`` (needs a gated fused plan; inactive
+        otherwise); 0 disables sampling.
     """
 
     def __init__(
@@ -68,6 +82,8 @@ class SparseServer:
         max_wait_ms: Optional[float] = None,
         clock: Callable[[], float] = time.monotonic,
         result_capacity: int = 4096,
+        tracer=None,
+        measure_dynamic_every: int = 0,
     ):
         self.plans = plans
         self.max_batch = max_batch or plans.max_batch
@@ -91,6 +107,11 @@ class SparseServer:
         # so the deadline clause is live from the first request
         self._lat_ewma: Dict[int, float] = dict(plans.warmup_s)
         self._lock = threading.Lock()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.io = IOTelemetry()
+        self.measure_dynamic_every = measure_dynamic_every
+        self._measure_countdown = measure_dynamic_every
+        self._io_seen: set = set()    # buckets already gauged
 
     # ------------------------------------------------------------------ #
     # admission and collection
@@ -209,4 +230,42 @@ class SparseServer:
             if evicted:
                 self.metrics.record_result_evictions(evicted)
             self.metrics.record_batch(t1, n, bucket, exec_s, waits, misses)
+            do_measure = False
+            if self.measure_dynamic_every > 0:
+                self._measure_countdown -= 1
+                if self._measure_countdown <= 0:
+                    self._measure_countdown = self.measure_dynamic_every
+                    do_measure = True
+            io_first = bucket not in self._io_seen
+            self._io_seen.add(bucket)
+        # I/O telemetry runs outside the lock: static gauges once per
+        # bucket, measured dynamic I/O on the sampling cadence
+        if io_first:
+            self.io.observe_plan(bucket, self.plans.plans.get(
+                bucket, self.plans.base))
+        if do_measure:
+            self._measure_dynamic(bucket, x)
         return n
+
+    def _measure_dynamic(self, bucket: int, x: np.ndarray) -> None:
+        """Sample measured dynamic I/O for one served batch (gated fused
+        plans only; inactive otherwise).  Telemetry must never fail
+        serving, so a measurement error becomes a trace event and a count."""
+        base = self.plans.base
+        if not base.gate or base._measure is None:
+            return
+        try:
+            report = base.measure_dynamic(x)
+        except Exception as e:
+            self.metrics.record_measure_failed()
+            if self.tracer.enabled:
+                self.tracer.event("io.measure_failed", model=self.io.model,
+                                  bucket=bucket, error=type(e).__name__)
+            return
+        self.io.observe_dynamic(bucket, report)
+        if self.tracer.enabled:
+            self.tracer.event(
+                "io.measure", model=self.io.model, bucket=bucket,
+                dynamic_blocks=int(report.dynamic_total),
+                static_blocks=int(report.static_total),
+                read_fraction=round(float(report.read_fraction), 4))
