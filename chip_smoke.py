@@ -8,7 +8,11 @@ Phases, each of which must pass (any failure exits non-zero):
   1. environment: torch/CUDA versions, device capability (9, 0), the card's
      name and power limit from nvidia-smi;
   2. build: the CUDA sources compiled with nvcc for sm_90a, one nvcc
-     process per source, all started together;
+     process per source, all started together; a ``ptxas:`` JSON line with
+     the registers, static shared memory and spills of each instance of
+     the kernels redesigned in PR 13, and, where cuobjdump exists, the
+     count of HGMMA instructions in each one's SASS (the bf16 ``moe_ffn``
+     kernel must have some);
   3. kernel vs plain at the BERT-large FFNN shapes (1024 -> 4096 -> 1024,
      density 0.1, 128x128 tiles, gelu): ``bsr_matmul`` per layer and
      ``bsr_megakernel`` for the net, f32/bf16/fp8 weights, f32/bf16
@@ -33,8 +37,9 @@ Phases, each of which must pass (any failure exits non-zero):
      device's busy share;
   6. ``moe_ffn`` against its plain version at the expert widths of
      Granite-3.0-1B-A400M (E = 32, C = 640, d = 1024, f = 512, gelu), f32
-     and bf16, f_tile 128 and 512, one call through its entry point, and
-     its times as in 5.
+     and bf16, f_tile 128 and 512, and bf16 with the other row tile (64
+     rows per CTA); one call through its entry point, and its times as in
+     5, both bf16 row tiles among them.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the ``kernels``
@@ -46,6 +51,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -85,7 +92,7 @@ TPU_KERNELS = {
     "moe_ffn": "src/repro/kernels/moe_ffn.py:47",
 }
 SOURCES = {
-    "bsr_matmul": "src/repro_torch/kernels/csrc/bsr_kernels.cu",
+    "bsr_matmul": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
     "bsr_megakernel": "src/repro_torch/kernels/csrc/bsr_kernels.cu",
     "bsr_megakernel_gated": "src/repro_torch/kernels/csrc/bsr_kernels.cu",
     "moe_ffn": "src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -174,15 +181,95 @@ def phase_env():
     return smi
 
 
+# the kernels PR 13 redesigned, as their mangled names begin
+NEW_KERNELS = ("bsr_matmul_kernel", "moe_bf16_kernel", "moe_f32_kernel")
+
+
+def ptxas_summary(log):
+    """Registers, shared memory and spills of each instance of the new
+    kernels, from ``nvcc -Xptxas -v``'s output."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = next((k for k in NEW_KERNELS if k in m.group(1)), None)
+            # the template arguments, as mangled
+            args = m.group(1).split(name, 1)[1].split("EEv")[0] \
+                if name else ""
+            spills = (0, 0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"kernel": name, "instance": args,
+                         "registers": int(m.group(1)),
+                         "static_smem": int(smem.group(1)) if smem else 0,
+                         "spill_stores": spills[0],
+                         "spill_loads": spills[1]})
+            name = None
+    return rows
+
+
+def cuobjdump():
+    """The toolkit's cuobjdump, else the one Triton carries, else None."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/cuobjdump")
+    if cand.exists():
+        return str(cand)
+    try:
+        import triton
+    except ImportError:
+        return None
+    cand = Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump"
+    return str(cand) if cand.exists() else None
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
     path, seconds, log = _build.build()
-    print(f"build: {path.name} in {seconds:.1f} s (nvcc, sm_90a)")
+    print(f"build: {path.name} in {seconds:.1f} s (nvcc, sm_90a, "
+          f"{len(_build.SOURCES)} sources)")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+        elif "arning" in line:
+            print(f"  nvcc: {line.strip()}")
+    if seconds:
+        summary = ptxas_summary(log)
+        check({r["kernel"] for r in summary} == set(NEW_KERNELS),
+              f"ptxas reported {sorted({r['kernel'] for r in summary})}")
+        print("ptxas: " + json.dumps(summary))
+    else:
+        print("ptxas: the build was reused; no compiler output")
     _build.load()
+    tool = cuobjdump()
+    if tool is None:
+        print("sass: no cuobjdump on this machine; HGMMA not inspected")
+        return
+    proc = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[:500]}")
+    counts, fn = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((k for k in NEW_KERNELS if k in m.group(1)), None)
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    print(f"sass ({tool}): HGMMA instructions per kernel "
+          + json.dumps({k: counts.get(k, 0) for k in NEW_KERNELS}))
+    check(counts.get("moe_bf16_kernel", 0) > 0,
+          "the bf16 moe_ffn kernel's SASS holds no HGMMA instruction")
 
 
 def compile_plans(layers, Engine):
@@ -513,8 +600,18 @@ def phase_moe():
             worst = max(worst, (err, abs_err))
             if (dtype, f_tile) == (torch.float32, MOE_F):
                 main_err = abs_err
-    print(f"moe_ffn vs plain: 4 comparisons passed (f32/bf16, f_tile in "
-          f"{MOE_F_TILES}); worst relative error {worst[0]:.3e}, worst abs "
+    # the other bf16 row tile, which phase 6 also times
+    x, wu, wd = moe_inputs(torch.bfloat16)
+    y = M.launch(x, wu, wd, K.activation_code("gelu"), M.moe_tile_plan(
+        MOE_E, MOE_C, MOE_D, MOE_F, torch.bfloat16, rows=64))
+    y_ref = M.moe_ffn_plain(x, wu, wd, "gelu", MOE_F)
+    torch.cuda.synchronize()
+    err, abs_err = rel_err(y, y_ref)
+    check(err < MOE_TOL[torch.bfloat16],
+          f"moe_ffn bf16, 64-row tiles: error {err:.3e}")
+    worst = max(worst, (err, abs_err))
+    print(f"moe_ffn vs plain: 5 comparisons passed (f32/bf16, f_tile in "
+          f"{MOE_F_TILES}, bf16 with 64-row tiles); worst relative error {worst[0]:.3e}, worst abs "
           f"error {worst[1]:.3e} (tolerance f32 {MOE_TOL[torch.float32]}, "
           f"bf16 {MOE_TOL[torch.bfloat16]})")
     x, wu, wd = moe_inputs(torch.float32)
@@ -528,18 +625,27 @@ def phase_moe():
     # times; the yardstick is bmm -> gelu -> bmm, three calls
     gelu = K.ACTIVATIONS["gelu"]
     main_row = None
-    for dtype, f_tile in ((torch.float32, MOE_F), (torch.float32, 128),
-                          (torch.bfloat16, MOE_F)):
+    for dtype, f_tile, rows in ((torch.float32, MOE_F, None),
+                                (torch.float32, 128, None),
+                                (torch.bfloat16, MOE_F, None),
+                                (torch.bfloat16, MOE_F, 64)):
         mx, wu, wd = moe_inputs(dtype)
         nbytes = mx.element_size() * (2 * mx.numel() + wu.numel()
                                       + wd.numel())
         nops = 4 * MOE_E * MOE_C * MOE_D * MOE_F
         b_ms, b_by = bound_ms(nbytes, nops, F32_OPS if dtype == torch.float32
                               else BF16_OPS)
+        plan = M.moe_tile_plan(MOE_E, MOE_C, MOE_D, MOE_F, dtype, rows)
+        ctas = MOE_E * -(-MOE_C // plan.rows)
+        # the entry point, or the kernel with the other bf16 row tile
+        kernel = (lambda: M.moe_ffn(mx, wu, wd, "gelu", f_tile)) \
+            if rows is None else (lambda: M.launch(
+                mx, wu, wd, K.activation_code("gelu"), plan))
         row = timed(
             "moe_ffn", "f32" if dtype == torch.float32 else "bf16",
-            f"E={MOE_E} C={MOE_C} d={MOE_D} f={MOE_F} f_tile={f_tile}",
-            lambda: M.moe_ffn(mx, wu, wd, "gelu", f_tile),
+            f"E={MOE_E} C={MOE_C} d={MOE_D} f={MOE_F} f_tile={f_tile}, "
+            f"{plan.rows} rows x {ctas} CTAs, f-chunk {plan.f_chunk}, "
+            f"{plan.route}", kernel,
             lambda: M.moe_ffn_plain(mx, wu, wd, "gelu", f_tile),
             lambda: torch.bmm(gelu(torch.bmm(mx, wu)).to(dtype), wd),
             b_ms, b_by)

@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "bsr_kernels.cu", CSRC / "moe_ffn.cu")
+SOURCES = (CSRC / "bsr_kernels.cu", CSRC / "bsr_matmul.cu",
+           CSRC / "moe_ffn.cu")
 HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
@@ -33,15 +34,17 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, bias, scales, out,
-    # B, n_in, n_out, bm, bn, n_runs, act, stream
-    "bsr_matmul_launch": [_I, _I] + [_P] * 8 + [_I] * 7 + [_P],
+    # x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, step_run, part_off,
+    # bias, scales, partial, arrivals, out, B, n_in, n_out, bm, bn, n_steps,
+    # k_slice, n_slices, vec, act, stream
+    "bsr_matmul_launch": [_I, _I] + [_P] * 12 + [_I] * 10 + [_P],
     # x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, layer_runs,
     # bias_idx, bias_tiles, scales, occ0, occ, hidden, out, B, n_in, n_out,
     # bs, n_layers, hidden_tiles, max_layer_runs, act, final_act, stream
     "bsr_megakernel_launch": [_I, _I] + [_P] * 13 + [_I] * 9 + [_P],
-    # dtype, x, w_up, w_down, out, E, C, d, f, f_tile, act, stream
-    "moe_ffn_launch": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    # dtype, x, w_up, w_down, out, scratch, E, C, d, f, rows, stages,
+    # f_chunk, route, act, stream
+    "moe_ffn_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

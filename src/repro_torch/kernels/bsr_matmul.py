@@ -4,10 +4,12 @@
 ``repro.kernels.bsr_matmul.bsr_matmul`` (one layer per launch) and
 ``bsr_megakernel`` replaces ``repro.kernels.bsr_matmul.bsr_megakernel`` (the
 whole net per launch), ungated and, with ``gate=True``, gated on runtime
-tile occupancy.  Both are CUDA C++ for ``sm_90a`` in
-``csrc/bsr_kernels.cu``, built by ``_build`` with ``nvcc`` at first use and
-bound through ctypes.  The source's header notes what bounds each kernel on
-the H100 and what its design does about it.
+tile occupancy.  Both are CUDA C++ for ``sm_90a``, in ``csrc/bsr_matmul.cu``
+and ``csrc/bsr_kernels.cu``, built by ``_build`` with ``nvcc`` at first use
+and bound through ctypes.  Each source's header notes what bounds its kernel
+on the H100 and what its design does about it.  ``split_plan`` is the
+single-layer kernel's work decomposition (step, K-slice, row chunk), built
+once per schedule by ``ops.compile_schedule``.
 
 Each wrapper dispatches on the device of ``x``: a CUDA tensor launches the
 kernel on ``torch.cuda.current_stream()`` (or raises — there is no fallback),
@@ -25,8 +27,10 @@ calls are not counted); ``reset_launches()`` zeroes all three.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -61,11 +65,14 @@ ACTIVATIONS = {
 ACTIVATION_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# bsr_matmul's grid is (runs, row chunks of kRows = 8 rows); CUDA caps the
-# second grid dimension at 65535
-_ROWS_PER_CTA = 8
+# bsr_matmul's grid is (steps x K-slices, row chunks of kChunkRows = 32
+# rows); CUDA caps the second grid dimension at 65535
+_ROWS_PER_CTA = 32
 _MAX_GRID_Y = 65535
 _W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+# keep in step with csrc/bsr_matmul.cu: threads per CTA, weight vectors a
+# thread holds, and the tallest K-slice
+_SPLIT_THREADS, _SPLIT_MAX_VEC, _SPLIT_MAX_ROWS = 128, 8, 32
 
 
 def apply_activation(y: torch.Tensor, act: Activation) -> torch.Tensor:
@@ -103,6 +110,51 @@ def reset_launches() -> None:
     bsr_matmul.launches = 0
     bsr_megakernel.launches = 0
     bsr_megakernel.gated_launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How ``bsr_matmul``'s kernel cuts one schedule into CTAs.
+
+    Work item (step ``g``, K-slice ``s``, chunk of 32 batch rows); step
+    ``g``'s slice ``s`` covers block rows ``s * k_slice`` up to
+    ``min(bm, (s + 1) * k_slice)`` and writes partial number
+    ``part_off[g] + s``.  ``step_run[g]`` is the output-tile run of step
+    ``g``; the last CTA of a run to finish sums the run's partials in
+    schedule order, then K-slice order.  ``vec`` is the number of weight
+    elements one thread loads at once (16 bytes' worth, or 1 where a block
+    row is not a multiple of 16 bytes).
+    """
+
+    step_run: np.ndarray   # int32 [n_steps]
+    part_off: np.ndarray   # int32 [n_steps]
+    k_slice: int
+    n_slices: int
+    vec: int
+
+    @property
+    def n_parts(self) -> int:
+        return len(self.part_off) * self.n_slices
+
+
+def split_plan(run_ptr, bm: int, bn: int, itemsize: int) -> SplitPlan:
+    """The split-K work decomposition of a schedule with run table
+    ``run_ptr`` and ``[bm, bn]`` blocks of ``itemsize``-byte weights."""
+    run_ptr = np.asarray(run_ptr, dtype=np.int64)
+    vec = 16 // itemsize if (bn * itemsize) % 16 == 0 else 1
+    groups = bn // vec                      # column groups of a block row
+    if groups > _SPLIT_THREADS:
+        raise ValueError(f"bsr_matmul: blocks {bn} wide in {itemsize}-byte "
+                         f"weights exceed the kernel's {_SPLIT_THREADS} "
+                         "column groups")
+    row_groups = _SPLIT_THREADS // groups
+    k_slice = min(bm, _SPLIT_MAX_ROWS, _SPLIT_MAX_VEC * row_groups)
+    n_slices = -(-bm // k_slice)
+    n_steps = int(run_ptr[-1])
+    step_run = np.repeat(np.arange(len(run_ptr) - 1), np.diff(run_ptr))
+    return SplitPlan(step_run=step_run.astype(np.int32),
+                     part_off=(np.arange(n_steps) * n_slices).astype(np.int32),
+                     k_slice=k_slice, n_slices=n_slices, vec=vec)
 
 
 def _dequant(blocks: torch.Tensor, scales: Optional[torch.Tensor]):
@@ -175,7 +227,10 @@ def bsr_matmul(x: torch.Tensor, schedule, bias: torch.Tensor,
 
     ``x`` [B, n_in] is float32 or bfloat16 (any B); the output is
     [B, grid_out * bn] in ``x.dtype``.  Weight blocks may be float32,
-    bfloat16 or float8_e4m3fn, dequantized by ``schedule.scales``.
+    bfloat16 or float8_e4m3fn, dequantized by ``schedule.scales``.  On the
+    card the f32 partials ([steps x K-slices, B, bn]) are allocated here
+    with ``torch.empty``; the schedule's arrival counters are shared by its
+    launches, so launches of one schedule must be ordered on one stream.
     """
     B, n_in = x.shape
     _, bm, bn = schedule.blocks.shape
@@ -200,16 +255,30 @@ def bsr_matmul(x: torch.Tensor, schedule, bias: torch.Tensor,
     if bias.numel() != n_out:
         raise ValueError(f"bsr_matmul: bias has {bias.numel()} entries for "
                          f"{n_out} outputs")
+    split, index = schedule.split, schedule.split_index
+    if split is None or index is None or index.device != x.device:
+        raise ValueError("bsr_matmul: the schedule has no split plan on "
+                         f"{x.device}; compile it with compile_schedule")
     out = torch.empty((B, n_out), dtype=x.dtype, device=x.device)
     if B == 0:
         return out
+    chunks = -(-B // _ROWS_PER_CTA)
+    if schedule.arrivals is None or schedule.arrivals.numel() < n_runs * chunks:
+        # zero between launches: the last CTA of each run resets its counter
+        schedule.arrivals = torch.zeros(n_runs * chunks, dtype=torch.int32,
+                                        device=x.device)
+    partial = torch.empty((split.n_parts, B, bn), dtype=torch.float32,
+                          device=x.device)
     scales = schedule.scales
     rc = _build.load().bsr_matmul_launch(
         _X_CODES[x.dtype], _W_CODES[schedule.blocks.dtype],
         x.data_ptr(), schedule.blocks.data_ptr(), schedule.rows.data_ptr(),
         schedule.cols.data_ptr(), schedule.run_ptr.data_ptr(),
-        bias.data_ptr(), None if scales is None else scales.data_ptr(),
-        out.data_ptr(), B, n_in, n_out, bm, bn, n_runs, act, _stream())
+        index[0].data_ptr(), index[1].data_ptr(), bias.data_ptr(),
+        None if scales is None else scales.data_ptr(), partial.data_ptr(),
+        schedule.arrivals.data_ptr(), out.data_ptr(), B, n_in, n_out, bm, bn,
+        int(schedule.rows.numel()), split.k_slice, split.n_slices, split.vec,
+        act, _stream())
     if rc:
         raise RuntimeError(f"bsr_matmul: kernel launch failed, CUDA error {rc}")
     bsr_matmul.launches += 1

@@ -1,9 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for scheduled block-sparse inference.
 //
-// bsr_matmul_kernel replaces the Pallas kernel bsr_matmul
-// (src/repro/kernels/bsr_matmul.py, `bsr_matmul` / body `_kernel`): one
-// layer, y = act(x @ W_bsr + b), over a Theorem-1 schedule whose steps are
-// grouped into contiguous runs per output tile.
+// The single-layer kernel, bsr_matmul, lives in bsr_matmul.cu.
 //
 // bsr_megakernel_kernel replaces the Pallas kernel bsr_megakernel (same
 // file, `bsr_megakernel` / body `_megakernel`, ungated): the whole net in one
@@ -12,7 +9,7 @@
 // kernel with gate=True (gating at bsr_matmul.py:208-217, occupancy counts
 // at :258-262): see "Gating" below.
 //
-// What bounds them on the H100.  Both stream every scheduled weight block
+// What bounds them on the H100.  They stream every scheduled weight block
 // from device memory once; at the paper's BERT-large FFNN (1024 -> 4096 ->
 // 1024, density 0.1, 128x128 tiles) that is 4,259,840 B in f32 (65 blocks,
 // patch blocks included), about 1.3 us at 3.35 TB/s.  The arithmetic,
@@ -22,7 +19,7 @@
 // first with fewer launches (one per forward for the megakernel) and keep the
 // per-launch work simple; wgmma, TMA and tuning are later work.
 //
-// Design shared by both kernels.  The Pallas grid is one sequential walk on
+// Design of both instances.  The Pallas grid is one sequential walk on
 // one TPU core; here the output-tile runs of a layer are independent, so one
 // CTA of 128 threads takes one (run, chunk of kRows batch rows) work item.
 // Thread t owns output column t of the tile (columns loop in steps of 128 for
@@ -200,25 +197,6 @@ __device__ void run_tile(const Src& src, const Dst& dst,
   }
 }
 
-template <typename XT, typename WT>
-__global__ void __launch_bounds__(kThreads)
-    bsr_matmul_kernel(const XT* __restrict__ x, const WT* __restrict__ blocks,
-                      const int* __restrict__ rows, const int* __restrict__ cols,
-                      const int* __restrict__ run_ptr,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ scales, XT* __restrict__ out,
-                      int B, int n_in, int n_out, int bm, int bn, int act) {
-  extern __shared__ float xs[];
-  const int run = blockIdx.x;
-  const int g0 = run_ptr[run];
-  const int g1 = run_ptr[run + 1];
-  const int c = cols[g0];
-  run_tile<false>(XSource<XT>{x, n_in, bm}, OutSink<XT>{out, n_out, bn},
-                  blocks, scales, rows, g0, g1, c, bm, bn, B,
-                  blockIdx.y * kRows, bias + (size_t)c * bn, act, xs, nullptr,
-                  nullptr);
-}
-
 // occ0 [grid_in_0] and occ [max(1, n_layers-1), hidden_tiles]: read and
 // written by the Gate instance only (null otherwise)
 template <bool Gate, typename XT, typename WT>
@@ -278,27 +256,6 @@ __global__ void __launch_bounds__(kThreads) bsr_megakernel_kernel(
     // layer k's hidden tiles (and, gated, their occupancy) are complete
     if (!is_final) grid.sync();
   }
-}
-
-template <typename XT, typename WT>
-cudaError_t launch_matmul(const void* x, const void* blocks, const int* rows,
-                          const int* cols, const int* run_ptr,
-                          const float* bias, const float* scales, void* out,
-                          int B, int n_in, int n_out, int bm, int bn,
-                          int n_runs, int act, cudaStream_t stream) {
-  const size_t smem = (size_t)kRows * bm * sizeof(float);
-  auto kernel = bsr_matmul_kernel<XT, WT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(n_runs, (B + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const XT*>(x), static_cast<const WT*>(blocks), rows, cols,
-      run_ptr, bias, scales, static_cast<XT*>(out), B, n_in, n_out, bm, bn,
-      act);
-  return cudaGetLastError();
 }
 
 template <bool Gate, typename XT, typename WT>
@@ -374,31 +331,6 @@ int megakernel_dispatch(int x_dtype, int w_dtype, const void* x,
 }
 
 }  // namespace
-
-// x_dtype: 0 float32, 1 bfloat16.  w_dtype: 0 float32, 1 bfloat16,
-// 2 float8_e4m3fn.  scales may be null (unit scale).
-extern "C" int bsr_matmul_launch(int x_dtype, int w_dtype, const void* x,
-                                 const void* blocks, const int* rows,
-                                 const int* cols, const int* run_ptr,
-                                 const float* bias, const float* scales,
-                                 void* out, int B, int n_in, int n_out, int bm,
-                                 int bn, int n_runs, int act, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BSR_MATMUL(XT, WT)                                                  \
-  return (int)launch_matmul<XT, WT>(x, blocks, rows, cols, run_ptr, bias,  \
-                                    scales, out, B, n_in, n_out, bm, bn,   \
-                                    n_runs, act, s)
-  switch (x_dtype * 3 + w_dtype) {
-    case 0: BSR_MATMUL(float, float);
-    case 1: BSR_MATMUL(float, __nv_bfloat16);
-    case 2: BSR_MATMUL(float, __nv_fp8_e4m3);
-    case 3: BSR_MATMUL(__nv_bfloat16, float);
-    case 4: BSR_MATMUL(__nv_bfloat16, __nv_bfloat16);
-    case 5: BSR_MATMUL(__nv_bfloat16, __nv_fp8_e4m3);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BSR_MATMUL
-}
 
 // Gated when occ is not null: then occ0 [grid_in_0] is read and occ
 // [max(1, n_layers-1), hidden_tiles], zeroed by the caller, is filled.

@@ -14,7 +14,10 @@ device.
 Beside the reference's fields, both schedules carry ``run_ptr``: the flat
 start of each output-tile run (a maximal stretch of steps with one output
 tile, i.e. the steps from a ``first`` flag to its ``last``), with the total
-step count appended.  The CUDA kernels hand one run to one CTA.
+step count appended.  The megakernel hands one run to one CTA;
+``bsr_matmul``'s kernel splits each step's block into K-slices
+(``CompiledSchedule.split``, built here once) and reduces each run's
+partials.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.blocksparse import BSRLayer, is_contiguous_by_output
-from .bsr_matmul import bsr_matmul
+from .bsr_matmul import SplitPlan, bsr_matmul, split_plan
 
 #: largest finite magnitude of float8_e4m3fn — the per-block fp8 scale maps
 #: each block's absmax onto it
@@ -110,6 +113,12 @@ class CompiledSchedule:
     scales: Optional[torch.Tensor] = None
     weight_dtype: str = "f32"
     run_ptr: Optional[torch.Tensor] = None   # int32 [grid_out + 1]
+    # bsr_matmul's work decomposition, its (step_run, part_off) rows as an
+    # int32 [2, nnz'] tensor on the device, and its per-run arrival counters
+    # (zero between launches; grown by the wrapper for larger batches)
+    split: Optional[SplitPlan] = None
+    split_index: Optional[torch.Tensor] = None
+    arrivals: Optional[torch.Tensor] = None
 
     @property
     def weight_bytes(self) -> int:
@@ -164,6 +173,9 @@ def compile_schedule(
     sim_reads = nnz + row_changes + layer.grid_out  # + bias tiles
     sim_writes = layer.grid_out
     qblocks, scales = quantize_blocks(blocks, weight_dtype)
+    run_ptr = _run_ptr(first)
+    split = split_plan(run_ptr, layer.block_m, layer.block_n,
+                       qblocks.element_size())
     return CompiledSchedule(
         blocks=qblocks.to(device),
         rows=_on(device, rows),
@@ -175,7 +187,11 @@ def compile_schedule(
         sim_writes=sim_writes,
         scales=None if scales is None else _on(device, scales),
         weight_dtype=resolve_weight_dtype(weight_dtype),
-        run_ptr=_on(device, _run_ptr(first)),
+        run_ptr=_on(device, run_ptr),
+        split=split,
+        split_index=_on(device, np.stack([split.step_run, split.part_off])),
+        arrivals=torch.zeros(layer.grid_out, dtype=torch.int32,
+                             device=device),
     )
 
 

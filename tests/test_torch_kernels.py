@@ -75,6 +75,106 @@ def test_bsr_matmul_plain_matches_pallas(sizes, block, density, xdt, wdt,
     assert K.bsr_matmul.launches == 0      # the plain version ran
 
 
+def split_emulate(x: torch.Tensor, sch, bias: torch.Tensor, act) -> torch.Tensor:
+    """``bsr_matmul``'s kernel decomposition on the CPU: one f32 partial per
+    (step, K-slice), each run's partials summed in schedule order, then
+    K-slice order, then bias and epilogue."""
+    split = sch.split
+    B = x.shape[0]
+    _, bm, bn = sch.blocks.shape
+    w = K._dequant(sch.blocks, sch.scales)
+    xf = x.float()
+    rows, cols = sch.rows.tolist(), sch.cols.tolist()
+    run_ptr = sch.run_ptr.tolist()
+    part_off = split.part_off.tolist()
+    parts = torch.empty((split.n_parts, B, bn))
+    for g, r in enumerate(rows):
+        for s in range(split.n_slices):
+            k0 = s * split.k_slice
+            k1 = min(bm, k0 + split.k_slice)
+            parts[part_off[g] + s] = xf[:, r * bm + k0:r * bm + k1] @ w[g, k0:k1]
+    out = torch.empty((B, sch.grid_out * bn), dtype=x.dtype)
+    for g0, g1 in zip(run_ptr[:-1], run_ptr[1:]):
+        acc = torch.zeros((B, bn))
+        for g in range(g0, g1):
+            for s in range(split.n_slices):
+                acc = acc + parts[part_off[g] + s]
+        c = cols[g0]
+        y = K.apply_activation(acc + bias[c * bn:(c + 1) * bn], act)
+        out[:, c * bn:(c + 1) * bn] = y.to(x.dtype)
+    return out
+
+
+def _layer_schedules(sizes, block, density, wdt, seed):
+    from repro.core.blocksparse import to_bsr
+
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(sizes).astype(np.float32) * 0.1
+    b = rng.standard_normal(sizes[1]).astype(np.float32) * 0.1
+    jl = to_bsr(w, *block, density=density, bias=b)
+    tl = layers_from_numpy([jl])[0]
+    perm = np.lexsort((jl.rows, jl.cols))
+    return (jl, jops.compile_schedule(jl, perm, wdt),
+            tl, tops.compile_schedule(tl, perm, wdt), rng)
+
+
+@pytest.mark.parametrize("sizes,block,density,xdt,wdt,batch,act", LAYER_CASES
+                         + [((256, 384), (128, 128), 0.3, "f32", "f32", 4,
+                             "gelu"),
+                            ((256, 256), (128, 128), 0.3, "f32", "fp8", 33,
+                             "none")])
+def test_bsr_matmul_split_plan_covers_every_step_once(sizes, block, density,
+                                                      xdt, wdt, batch, act):
+    """step -> run, K-slices and partial offsets: every step in exactly one
+    run, every (step, slice) partial written once, every block row in one
+    slice, and partials laid out (so reduced) in schedule order."""
+    _, _, _, sch, _ = _layer_schedules(sizes, block, density, wdt, batch)
+    split = sch.split
+    bm, bn = block
+    run_ptr = sch.run_ptr.numpy()
+    step_run = sch.split_index[0].numpy()
+    part_off = sch.split_index[1].numpy()
+    np.testing.assert_array_equal(step_run, split.step_run)
+    np.testing.assert_array_equal(part_off, split.part_off)
+    n_steps = len(sch.rows)
+    assert len(step_run) == n_steps and run_ptr[-1] == n_steps
+    for run in range(len(run_ptr) - 1):
+        assert (step_run[run_ptr[run]:run_ptr[run + 1]] == run).all()
+    owners = np.zeros(split.n_parts, dtype=int)
+    for g in range(n_steps):
+        owners[part_off[g]:part_off[g] + split.n_slices] += 1
+    assert (owners == 1).all()
+    assert (np.diff(part_off) > 0).all()          # schedule order
+    assert (split.n_slices - 1) * split.k_slice < bm <= \
+        split.n_slices * split.k_slice
+    itemsize = sch.blocks.element_size()
+    assert split.vec in (1, 16 // itemsize)
+    assert split.vec == 1 or (bn * itemsize) % 16 == 0
+    # every thread's weight vectors fit its registers (kMaxVec = 8)
+    groups = bn // split.vec
+    assert groups <= 128 and -(-split.k_slice // (128 // groups)) <= 8
+    assert sch.arrivals.numel() == sch.grid_out and \
+        not sch.arrivals.any()
+
+
+@pytest.mark.parametrize("sizes,block,density,xdt,wdt,batch,act", LAYER_CASES)
+def test_bsr_matmul_split_emulation_matches_pallas(sizes, block, density, xdt,
+                                                   wdt, batch, act):
+    """The kernel's split-K decomposition, emulated on the CPU in its
+    reduction order, against the reference's Pallas kernel (interpret)."""
+    jl, jsch, tl, tsch, rng = _layer_schedules(sizes, block, density, wdt,
+                                               sum(sizes) + batch)
+    x = rng.standard_normal((batch, sizes[0])).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16 if xdt == "bf16" else jnp.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if xdt == "bf16"
+                                else torch.float32)
+    fwd = jbackends.make_forward([jl], [jsch], [JAX_ACT[act]], "interpret")
+    y_ref = np.asarray(fwd(jx).astype(jnp.float32))
+    y = split_emulate(tx, tsch, torch.from_numpy(tl.bias), act)
+    assert y.dtype == tx.dtype and y.shape == (batch, sizes[1])
+    assert err(port_out(y), y_ref) < TOL[xdt]
+
+
 MEGA_CASES = [
     ((96, 128, 64), 0.4, "f32", "f32", 3, "relu"),
     ((64, 128, 96, 64), 0.3, "f32", "bf16", 5, "gelu"),
@@ -159,21 +259,47 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", (1, 5, 33))
 @pytest.mark.parametrize("wdt", ("f32", "bf16", "fp8"))
-def test_cuda_kernels_match_plain(make_stack, cuda_device, wdt):
-    """Both kernels on the card against their plain versions, odd batch."""
+def test_cuda_kernels_match_plain(make_stack, cuda_device, wdt, batch):
+    """Both kernels on the card against their plain versions, odd batches
+    (33 spans two of bsr_matmul's 32-row chunks)."""
     tls = layers_from_numpy(make_stack(sizes=(128, 256, 128), block=32))
     schs = [tops.compile_schedule(l, np.lexsort((l.rows, l.cols)), wdt,
                                   device=cuda_device) for l in tls]
     flat = tops.compile_flat_schedule(tls, schs)
-    x = torch.randn((5, 128), generator=torch.Generator().manual_seed(0))
+    x = torch.randn((batch, 128), generator=torch.Generator().manual_seed(0))
     x = x.to(cuda_device)
     K.reset_launches()
     y = K.bsr_megakernel(x, flat, "gelu", "none")
     y_ref = K.bsr_megakernel_plain(x, flat, "gelu", "none")
     assert err(y.cpu(), y_ref.cpu()) < 1e-4
     bias = torch.from_numpy(tls[0].bias).to(cuda_device)
-    y = K.bsr_matmul(x, schs[0], bias, "relu")
-    y_ref = K.bsr_matmul_plain(x, schs[0], bias, "relu")
-    assert err(y.cpu(), y_ref.cpu()) < 1e-4
-    assert (K.bsr_matmul.launches, K.bsr_megakernel.launches) == (1, 1)
+    for _ in range(2):           # the arrival counters reset themselves
+        y = K.bsr_matmul(x, schs[0], bias, "relu")
+        y_ref = K.bsr_matmul_plain(x, schs[0], bias, "relu")
+        assert err(y.cpu(), y_ref.cpu()) < 1e-4
+    assert (K.bsr_matmul.launches, K.bsr_megakernel.launches) == (2, 1)
+    assert not schs[0].arrivals.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", (1, 33))
+@pytest.mark.parametrize("sizes,block,density,xdt,wdt,_batch,act",
+                         LAYER_CASES)
+def test_cuda_bsr_matmul_ragged_blocks_match_plain(cuda_device, sizes, block,
+                                                   density, xdt, wdt, _batch,
+                                                   act, batch):
+    """bsr_matmul on the card at the parity cases' block shapes (narrow,
+    non-square, K-slices shorter than a block) against its plain version."""
+    _, _, tl, _, rng = _layer_schedules(sizes, block, density, wdt, batch)
+    sch = tops.compile_schedule(tl, np.lexsort((tl.rows, tl.cols)), wdt,
+                                device=cuda_device)
+    x = torch.from_numpy(rng.standard_normal((batch, sizes[0])).astype(
+        np.float32)).to(cuda_device)
+    x = x.to(torch.bfloat16 if xdt == "bf16" else torch.float32)
+    bias = torch.from_numpy(tl.bias).to(cuda_device)
+    y = K.bsr_matmul(x, sch, bias, act)
+    y_ref = K.bsr_matmul_plain(x, sch, bias, act)
+    assert err(y.float().cpu(), y_ref.float().cpu()) < \
+        {"f32": 1e-4, "bf16": 3e-2}[xdt]

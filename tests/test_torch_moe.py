@@ -113,6 +113,67 @@ def test_moe_ffn_rejects_bad_shapes():
         M.moe_ffn(meta, twu.to("meta"), twd.to("meta"), f_tile=32)
 
 
+# expert widths of the model configs (d_model, d_ff, n_experts) with a
+# capacity C and an f_tile that divides f
+CONFIG_CASES = [
+    ("granite_moe_1b_a400m", 640, 512),
+    ("granite_moe_1b_a400m", 640, 128),
+    ("deepseek_moe_16b", 384, 128),
+    ("deepseek_moe_16b", 33, 704),
+]
+
+
+def _config_shape(name):
+    import importlib
+
+    cfg = importlib.import_module(f"repro.configs.{name}").CONFIG
+    return cfg.n_experts, cfg.d_model, cfg.d_ff
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "case", [c[:5] for c in MOE_CASES] + CONFIG_CASES,
+    ids=[f"moe{i}" for i in range(len(MOE_CASES))]
+    + [f"{n}-C{C}-ft{ft}" for n, C, ft in CONFIG_CASES])
+def test_moe_tile_plan_fits(case, dtype):
+    """The launch plan takes every shape: within 232,448 B of shared memory,
+    chunks of f that cover f (multiples of the kernel's K step when there
+    is more than one), and a staging route the shape allows."""
+    if isinstance(case[0], str):
+        name, C, f_tile = case
+        E, d, f = _config_shape(name)
+    else:
+        E, C, d, f, f_tile = case
+    assert f % f_tile == 0
+    tdt = DTYPES[dtype][1]
+    plan = M.moe_tile_plan(E, C, d, f, tdt)
+    assert plan.smem + (64 if dtype == "bf16" else 0) <= 232448
+    assert plan.n_chunks * plan.f_chunk >= f > (plan.n_chunks - 1) * plan.f_chunk
+    if dtype == "bf16":
+        assert plan.rows in (64, 128)
+        assert 2 <= plan.stages <= 4
+        assert plan.n_chunks == 1 or plan.f_chunk % 64 == 0
+        assert plan.route == ("tma" if d % 8 == 0 and f % 8 == 0
+                              else "loads")
+    else:
+        assert (plan.rows, plan.stages) == (64, 2)
+        assert plan.n_chunks == 1 or plan.f_chunk % 128 == 0
+        assert 2 * (plan.smem + 1024) <= 233472      # two CTAs per SM
+        assert plan.route == ("cp.async16" if d % 4 == 0 and f % 4 == 0
+                              else "cp.async4")
+
+
+def test_moe_tile_plan_granite_default():
+    """At Granite's widths h for all of f stays on chip in bf16."""
+    plan = M.moe_tile_plan(32, 640, 1024, 512, torch.bfloat16)
+    assert (plan.rows, plan.f_chunk, plan.n_chunks, plan.route) == \
+        (128, 512, 1, "tma")
+    assert M.moe_tile_plan(32, 640, 1024, 512, torch.bfloat16,
+                           rows=64).rows == 64
+    with pytest.raises(ValueError, match="64 or 128"):
+        M.moe_tile_plan(32, 640, 1024, 512, torch.bfloat16, rows=96)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -120,8 +181,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# beyond MOE_CASES: one and 33 token rows, rows that are not 16-byte
+# multiples (bf16's loads route, f32's 4-byte copies), more than one chunk
+# of f in bf16, and two bf16 warpgroups (C > 64)
+CUDA_MOE_CASES = MOE_CASES + [
+    (2, 1, 64, 128, 64, "bf16"),
+    (2, 33, 64, 128, 64, "f32"),
+    (2, 33, 128, 256, 128, "bf16"),
+    (3, 40, 100, 200, 100, "bf16"),
+    (3, 40, 98, 198, 66, "f32"),
+    (2, 70, 256, 1408, 128, "bf16"),
+    (2, 130, 128, 640, 128, "f32"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,C,d,f,f_tile,dtype", MOE_CASES)
+@pytest.mark.parametrize("E,C,d,f,f_tile,dtype", CUDA_MOE_CASES)
 def test_cuda_moe_ffn_matches_plain(cuda_device, E, C, d, f, f_tile, dtype):
     _, ts = both(inputs(E, C, d, f, 7), dtype)
     tx, twu, twd = (t.to(cuda_device) for t in ts)
