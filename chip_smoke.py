@@ -10,18 +10,23 @@ Phases, each of which must pass (any failure exits non-zero):
   2. build: the CUDA sources compiled with nvcc for sm_90a, one nvcc
      process per source, all started together; a ``ptxas:`` JSON line with
      the registers, static shared memory and spills of each instance of
-     the kernels redesigned in PR 13, and, where cuobjdump exists, the
+     the BSR kernels and ``moe_ffn``, and, where cuobjdump exists, the
      count of HGMMA instructions in each one's SASS (the bf16 ``moe_ffn``
      kernel must have some);
   3. kernel vs plain at the BERT-large FFNN shapes (1024 -> 4096 -> 1024,
      density 0.1, 128x128 tiles, gelu): ``bsr_matmul`` per layer and
      ``bsr_megakernel`` for the net, f32/bf16/fp8 weights, f32/bf16
-     inputs, B in {1, 4, 32}, each against its plain PyTorch version;
-     then the gated megakernel on the same widths with relu, half of the
-     hidden tiles killed by a bias of -10 and the first 4 of 8 input tiles
-     zero: occupancy equal to the plain version's, output within tolerance
-     of it and bit-equal to the ungated kernel's, and ``measure_dynamic``'s
-     read fraction below 1;
+     inputs, B in {1, 4, 32, 33} (33 spans two row chunks), each against
+     its plain PyTorch version; with f32 x the megakernel's output must be
+     bit-equal to two chained ``bsr_matmul`` launches (both walk the same
+     split-K code and keep the hidden tile in f32), and every schedule's
+     arrival counters must be zero after each launch; the megakernel's
+     cooperative grid size is printed; then the gated megakernel on the
+     same widths with relu, half of the hidden tiles killed by a bias of
+     -10 and the first 4 of 8 input tiles zero: occupancy equal to the
+     plain version's, output within tolerance of it and bit-equal to the
+     ungated kernel's, counters zero, and ``measure_dynamic``'s read
+     fraction below 1;
   4. main path: ``repro_torch.launch.serve --sparse-ffnn --batch 4
      --requests 64 --reorder-iters 300`` in-process — every request answered,
      answers equal to the plan's torch-backend safe twin, and one megakernel
@@ -33,8 +38,10 @@ Phases, each of which must pass (any failure exits non-zero):
      beside the least time the card could take for the same work: device
      time per call from a torch.profiler trace of 30 calls, and per-call
      time between CUDA events (median of 30, after warm-up), which adds the
-     host's share of the call; then one profiled serving window, for the
-     device's busy share;
+     host's share of the call; the megakernel rows also carry the device
+     time of two chained ``bsr_matmul`` launches (``two_bsr_matmul_ms``,
+     what ``--no-fuse`` runs) and the cooperative grid size; then one
+     profiled serving window, for the device's busy share;
   6. ``moe_ffn`` against its plain version at the expert widths of
      Granite-3.0-1B-A400M (E = 32, C = 640, d = 1024, f = 512, gelu), f32
      and bf16, f_tile 128 and 512, and bf16 with the other row tile (64
@@ -64,7 +71,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SIZES = [1024, 4096, 1024]
 DENSITY, BLOCK, REORDER_ITERS = 0.1, 128, 300
-BATCHES = (1, 4, 32)
+BATCHES = (1, 4, 32, 33)
 MAIN_B = 4
 # kernel vs plain on the same inputs: both accumulate in f32, in different
 # orders (FMA chain vs per-block matmul) -> f32 outputs agree to 1e-4;
@@ -140,25 +147,35 @@ def median_ms(fn, runs=30, warm=5):
     return float(np.median(times))
 
 
-def device_ms(fn, runs=30, warm=5):
+def device_ms(fn, runs=30, warm=5, tries=5):
     """Device time per call (ms): the summed duration of the GPU activities
     (kernels, copies) that ``runs`` calls put on the card, from a
     torch.profiler trace, over ``runs``.  Host time between launches is not
-    in it.  None when the trace shows no device activity."""
+    in it.  A trace now and then holds another trace's device activity and
+    misses its own, so only activity that starts after the trace's first
+    host event counts, and a trace whose activity is not a whole number per
+    call is taken again, up to ``tries`` times.  None when no trace shows
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / runs if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        t0 = min((e.time_range.start for e in events
+                  if e.device_type == DeviceType.CPU), default=None)
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and (t0 is None or e.time_range.start >= t0)]
+        if dev and len(dev) % runs == 0:
+            return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / runs
+    return None
 
 
 def bound_ms(n_bytes, n_ops, ops_rate=F32_OPS):
@@ -181,8 +198,10 @@ def phase_env():
     return smi
 
 
-# the kernels PR 13 redesigned, as their mangled names begin
-NEW_KERNELS = ("bsr_matmul_kernel", "moe_bf16_kernel", "moe_f32_kernel")
+# the kernels whose registers and spills phase 2 reports, as their mangled
+# names begin
+NEW_KERNELS = ("bsr_matmul_kernel", "bsr_megakernel_kernel",
+               "moe_bf16_kernel", "moe_f32_kernel")
 
 
 def ptxas_summary(log):
@@ -288,7 +307,8 @@ def phase_kernels(plans, rng):
 
     worst = {"bsr_matmul": (0.0, 0.0), "bsr_megakernel": (0.0, 0.0)}
     main_err = {}
-    n = 0
+    n = n_bit = 0
+    grids = {}
     for wdt, plan in plans.items():
         biases = [torch.as_tensor(l.bias).cuda() for l in plan.layers]
         acts = ["gelu", "none"]
@@ -306,6 +326,8 @@ def phase_kernels(plans, rng):
                           "bsr_matmul did not count its launch")
                     y_ref = K.bsr_matmul_plain(h, sch, bias, acts[k])
                     torch.cuda.synchronize()
+                    check(not sch.arrivals.any(), f"bsr_matmul layer {k} "
+                          f"{wdt} B={B}: arrival counters not zero")
                     err, abs_err = rel_err(y, y_ref)
                     check(y.dtype == xdt and y.shape == y_ref.shape,
                           "bsr_matmul output dtype/shape")
@@ -321,8 +343,20 @@ def phase_kernels(plans, rng):
                 y = K.bsr_megakernel(x, plan.flat, "gelu", "none")
                 check(K.bsr_megakernel.launches == before + 1,
                       "bsr_megakernel did not count its launch")
+                grids[f"{wdt} B={B}"] = K.bsr_megakernel.grid
                 y_ref = K.bsr_megakernel_plain(x, plan.flat, "gelu", "none")
                 torch.cuda.synchronize()
+                check(not plan.flat.arrivals.any(), f"bsr_megakernel {wdt} "
+                      f"x {xdt} B={B}: arrival counters not zero")
+                if xdt == torch.float32:
+                    # the same split-K walk: bit-equal to two bsr_matmul
+                    # launches, which keep the hidden tile in f32 too
+                    y_two = K.bsr_matmul(K.bsr_matmul(
+                        x, plan.schedules[0], biases[0], "gelu"),
+                        plan.schedules[1], biases[1], "none")
+                    check(torch.equal(y, y_two), f"bsr_megakernel {wdt} "
+                          f"B={B}: not bit-equal to two bsr_matmul launches")
+                    n_bit += 1
                 err, abs_err = rel_err(y, y_ref)
                 check(err < TOL[xdt], f"bsr_megakernel {wdt} x {xdt} B={B}: "
                       f"error {err:.3e} >= {TOL[xdt]}")
@@ -336,7 +370,10 @@ def phase_kernels(plans, rng):
               f"worst abs error {abs_err:.3e} (tolerance f32 {TOL[torch.float32]}, "
               f"bf16 {TOL[torch.bfloat16]})")
     print(f"kernel vs plain: {n} comparisons passed "
-          f"(weights f32/bf16/fp8, x f32/bf16, B in {BATCHES})")
+          f"(weights f32/bf16/fp8, x f32/bf16, B in {BATCHES}); with f32 x "
+          f"the megakernel bit-equal to two bsr_matmul launches in {n_bit} "
+          "of them; arrival counters zero after every launch")
+    print("megakernel cooperative grid (CTAs): " + json.dumps(grids))
     return main_err
 
 
@@ -389,6 +426,8 @@ def phase_gated_kernels(layers, rng, Engine):
                     x, flat, "relu", "none", gate=True, occ0=occ0)
                 y_ungated = K.bsr_megakernel(x, flat, "relu", "none")
                 torch.cuda.synchronize()
+                check(not flat.arrivals.any(), f"gated {wdt} x {xdt} B={B}: "
+                      "arrival counters not zero")
                 check(torch.equal(occ.cpu(), occ_ref.cpu()),
                       f"gated {wdt} x {xdt} B={B}: occupancy {occ.tolist()} "
                       f"!= plain {occ_ref.tolist()}")
@@ -408,7 +447,8 @@ def phase_gated_kernels(layers, rng, Engine):
                   f"gated {wdt} B={B}: read fraction {rep.read_fraction}")
             print(f"gated {wdt} B={B}: {rep.summary()}")
     print(f"gated kernel vs plain: {n} comparisons passed, occupancy equal, "
-          f"output bit-equal to the ungated kernel; worst relative error "
+          f"output bit-equal to the ungated kernel, counters zero; worst "
+          f"relative error "
           f"{worst[0]:.3e}, worst abs error {worst[1]:.3e}; read fraction "
           f"{min(fractions):.4f}..{max(fractions):.4f}")
     return main_err
@@ -723,9 +763,14 @@ def phase_times(plans, rng):
                 lambda: K.bsr_matmul_plain(x, schs[0], biases[0], "gelu"),
                 lambda: gelu(torch.addmm(biases[0], x, dense[0])),
                 *bound_ms(nbytes, nops)))
-        # the whole net: a dense chain addmm -> gelu -> addmm as yardstick
+        # the whole net: a dense chain addmm -> gelu -> addmm as yardstick,
+        # and the two bsr_matmul launches that --no-fuse runs as the second
         chain = (lambda xx: torch.addmm(biases[1], gelu(torch.addmm(
             biases[0], xx, dense[0])), dense[1]))
+
+        def two_layers(xx):
+            return device_ms(lambda: K.bsr_matmul(K.bsr_matmul(
+                xx, schs[0], biases[0], "gelu"), schs[1], biases[1]))
         nnz = sum(l.nnz_blocks for l in layers)
         act_bytes = (x.numel() * 4 + sum(l.n_out for l in layers) * 4
                      + MAIN_B * SIZES[-1] * 4)
@@ -736,6 +781,8 @@ def phase_times(plans, rng):
             lambda: K.bsr_megakernel(x, plan.flat, "gelu", "none"),
             lambda: K.bsr_megakernel_plain(x, plan.flat, "gelu", "none"),
             lambda: chain(x), b_ms, b_by)
+        mrow["two_bsr_matmul_ms"] = two_layers(x)
+        mrow["grid"] = K.bsr_megakernel.grid
         detail.append(mrow)
         if wdt == "f32":
             entries["bsr_matmul"] = row
@@ -765,9 +812,11 @@ def phase_times(plans, rng):
                     lambda: K.bsr_megakernel_plain(xx, flat, "gelu", "none",
                                                    gate=True, occ0=occ0),
                     lambda: chain(xx), b_ms, b_by)
+                grow["grid"] = K.bsr_megakernel.grid
                 ungated = (lambda: K.bsr_megakernel(xx, flat, "gelu",
                                                     "none"))
                 grow["ungated_ms"] = device_ms(ungated) or median_ms(ungated)
+                grow["two_bsr_matmul_ms"] = two_layers(xx)
                 detail.append(grow)
             entries["bsr_megakernel_gated"] = grow   # the 50 % row
     for row in detail:

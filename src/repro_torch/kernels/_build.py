@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "bsr_kernels.cu", CSRC / "bsr_matmul.cu",
            CSRC / "moe_ffn.cu")
-HEADERS = (CSRC / "common.cuh",)
+HEADERS = (CSRC / "common.cuh", CSRC / "split_k.cuh")
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,10 +38,14 @@ _SIGNATURES = {
     # bias, scales, partial, arrivals, out, B, n_in, n_out, bm, bn, n_steps,
     # k_slice, n_slices, vec, act, stream
     "bsr_matmul_launch": [_I, _I] + [_P] * 12 + [_I] * 10 + [_P],
-    # x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, layer_runs,
-    # bias_idx, bias_tiles, scales, occ0, occ, hidden, out, B, n_in, n_out,
-    # bs, n_layers, hidden_tiles, max_layer_runs, act, final_act, stream
-    "bsr_megakernel_launch": [_I, _I] + [_P] * 13 + [_I] * 9 + [_P],
+    # x_dtype, w_dtype, vec, x, blocks, rows, cols, run_ptr, step_run,
+    # part_off, bias_idx, bias_tiles, scales, occ0, slots, occ, hidden,
+    # partial, arrivals, out, B, n_in, n_out, bs, n_layers, hidden_tiles,
+    # k_slice, n_slices, max_layer_steps, act, final_act, epoch, seg (host
+    # int[n_layers + 1]), stream, grid (int*, out)
+    "bsr_megakernel_launch": [_I] * 3 + [_P] * 17 + [_I] * 11
+                             + [ctypes.c_uint, ctypes.POINTER(_I), _P,
+                                ctypes.POINTER(_I)],
     # dtype, x, w_up, w_down, out, scratch, E, C, d, f, rows, stages,
     # f_chunk, route, act, stream
     "moe_ffn_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P],

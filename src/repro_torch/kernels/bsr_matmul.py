@@ -5,11 +5,12 @@
 ``bsr_megakernel`` replaces ``repro.kernels.bsr_matmul.bsr_megakernel`` (the
 whole net per launch), ungated and, with ``gate=True``, gated on runtime
 tile occupancy.  Both are CUDA C++ for ``sm_90a``, in ``csrc/bsr_matmul.cu``
-and ``csrc/bsr_kernels.cu``, built by ``_build`` with ``nvcc`` at first use
-and bound through ctypes.  Each source's header notes what bounds its kernel
-on the H100 and what its design does about it.  ``split_plan`` is the
-single-layer kernel's work decomposition (step, K-slice, row chunk), built
-once per schedule by ``ops.compile_schedule``.
+and ``csrc/bsr_kernels.cu``, which share their block walk
+(``csrc/split_k.cuh``); ``_build`` compiles them with ``nvcc`` at first use
+and binds them through ctypes.  Each source's header notes what bounds its
+kernel on the H100 and what its design does about it.  ``split_plan`` is
+that walk's work decomposition (step, K-slice, row chunk), built once per
+schedule by ``ops.compile_schedule`` and ``ops.compile_flat_schedule``.
 
 Each wrapper dispatches on the device of ``x``: a CUDA tensor launches the
 kernel on ``torch.cuda.current_stream()`` (or raises — there is no fallback),
@@ -23,11 +24,14 @@ run.  Their products assume PyTorch's default full-f32 matmul
 ``bsr_matmul.launches`` / ``bsr_megakernel.launches`` count kernel launches
 and ``bsr_megakernel.gated_launches`` the gated megakernel's (plain-version
 calls are not counted); ``reset_launches()`` zeroes all three.
+``bsr_megakernel.grid`` is the cooperative grid size of its last launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -61,7 +65,7 @@ ACTIVATIONS = {
 }
 
 #: epilogue name -> the integer the CUDA kernels switch on (keep in step
-#: with ``enum Act`` in csrc/bsr_kernels.cu)
+#: with ``enum Act`` in csrc/common.cuh)
 ACTIVATION_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,6 +77,8 @@ _W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 # keep in step with csrc/bsr_matmul.cu: threads per CTA, weight vectors a
 # thread holds, and the tallest K-slice
 _SPLIT_THREADS, _SPLIT_MAX_VEC, _SPLIT_MAX_ROWS = 128, 8, 32
+# the megakernel takes its segment table by value (csrc/bsr_kernels.cu)
+_MEGA_MAX_LAYERS = 32
 
 
 def apply_activation(y: torch.Tensor, act: Activation) -> torch.Tensor:
@@ -114,7 +120,8 @@ def reset_launches() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
-    """How ``bsr_matmul``'s kernel cuts one schedule into CTAs.
+    """How the kernels cut one schedule (a layer's, or the flat one) into
+    work items.
 
     Work item (step ``g``, K-slice ``s``, chunk of 32 batch rows); step
     ``g``'s slice ``s`` covers block rows ``s * k_slice`` up to
@@ -176,7 +183,7 @@ def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
             raise ValueError(f"{name}: {key} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    for key in ("rows", "cols", "run_ptr", "layer_runs", "bias_idx", "occ0"):
+    for key in ("rows", "cols", "run_ptr", "bias_idx", "occ0"):
         t = tensors.get(key)
         if t is not None and t.dtype != torch.int32:
             raise ValueError(f"{name}: {key} must be int32, got {t.dtype}")
@@ -352,15 +359,21 @@ def bsr_megakernel(x: torch.Tensor, flat,
 
     ``activation`` is the one hidden epilogue, ``final_activation`` the last
     layer's.  ``x`` [B, n_in] is float32 or bfloat16 (any B); the output is
-    [B, grid_out_final * block] in ``x.dtype``.  The f32 hidden ping-pong
-    buffer [2, hidden_tiles, B, block] is allocated here with ``torch.empty``.
+    [B, grid_out_final * block] in ``x.dtype``.  On the card the f32 scratch
+    (the hidden ping-pong buffer [2, hidden_tiles, B, block] and the
+    partials [steps x K-slices, B, block]) is allocated here with
+    ``torch.empty``.  The flat schedule's arrival counters are shared by its
+    launches, so launches of one flat schedule must be ordered on one
+    stream.
 
     With ``gate=True`` the call takes ``occ0`` (int32 [grid_in_0], the
     live-row counts of x's input tiles, on x's device) and returns
     ``(y, occ)``: ``occ`` (int32 [max(1, n_layers-1), hidden_tiles]) holds
     the live-row counts of every hidden tile, as the kernel measured them
-    and gated on.  ``y`` is bit-identical to the ungated output.  ``occ``
-    is allocated with ``torch.zeros``, since the kernel adds into it.
+    and gated on.  ``y`` is bit-identical to the ungated output.  The
+    kernel writes every entry of ``occ``, so it is allocated with
+    ``torch.empty``; the per-chunk counts it sums live in the flat
+    schedule's ``slots``, tagged with the launch's ``epoch``.
     """
     B, n_in = x.shape
     bs = flat.block
@@ -377,33 +390,68 @@ def bsr_megakernel(x: torch.Tensor, flat,
     fact = activation_code(final_activation)
     _check_cuda("bsr_megakernel", x, dict(
         blocks=flat.blocks, rows=flat.rows, cols=flat.cols,
-        run_ptr=flat.run_ptr, layer_runs=flat.layer_runs,
-        bias_idx=flat.bias_idx, bias_tiles=flat.bias_tiles,
-        scales=flat.scales, x=x, occ0=occ0 if gate else None))
+        run_ptr=flat.run_ptr, bias_idx=flat.bias_idx,
+        bias_tiles=flat.bias_tiles, scales=flat.scales, x=x,
+        occ0=occ0 if gate else None))
+    split, index = flat.split, flat.split_index
+    if split is None or index is None or index.device != x.device:
+        raise ValueError("bsr_megakernel: the flat schedule has no split "
+                         f"plan on {x.device}; compile it with "
+                         "compile_flat_schedule")
+    if flat.n_layers > _MEGA_MAX_LAYERS:
+        raise ValueError(f"bsr_megakernel: {flat.n_layers} layers; the "
+                         f"kernel takes at most {_MEGA_MAX_LAYERS} (compile "
+                         "with fuse=False for deeper nets)")
     n_out = flat.grid_out_final * bs
+    n_occ = max(1, flat.n_layers - 1)
     out = torch.empty((B, n_out), dtype=x.dtype, device=x.device)
-    occ = torch.zeros((max(1, flat.n_layers - 1), flat.hidden_tiles),
-                      dtype=torch.int32, device=x.device) if gate else None
     if B == 0:
+        occ = torch.zeros((n_occ, flat.hidden_tiles), dtype=torch.int32,
+                          device=x.device)
         return (out, occ) if gate else out
-    hidden = torch.empty((2, flat.hidden_tiles, B, bs), dtype=torch.float32,
-                         device=x.device)
+    chunks = -(-B // _ROWS_PER_CTA)
+    n_runs = flat.run_ptr.numel() - 1
+    if flat.arrivals is None or flat.arrivals.numel() < n_runs * chunks:
+        # zero between launches: the last CTA of each run resets its counter
+        flat.arrivals = torch.zeros(n_runs * chunks, dtype=torch.int32,
+                                    device=x.device)
+    # one f32 scratch: the hidden ping-pong buffer, then the partials
+    n_hidden = 2 * flat.hidden_tiles * B * bs
+    scratch = torch.empty(n_hidden + split.n_parts * B * bs,
+                          dtype=torch.float32, device=x.device)
+    occ = None
+    if gate:
+        # one slot per (hidden layer, tile, row chunk), zeroed anew when the
+        # chunk count changes, so that each keeps one meaning; the kernel
+        # tells this launch's slots by a tag that is never 0 and repeats
+        # only after 2**32 - 1 launches
+        n_slots = n_occ * flat.hidden_tiles * chunks
+        if flat.slots is None or flat.slots.numel() != n_slots:
+            flat.slots = torch.zeros(n_slots, dtype=torch.int64,
+                                     device=x.device)
+        flat.epoch = flat.epoch % 0xFFFFFFFF + 1
+        occ = torch.empty((n_occ, flat.hidden_tiles), dtype=torch.int32,
+                          device=x.device)
     scales = flat.scales
     rc = _build.load().bsr_megakernel_launch(
-        _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype],
+        _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype], split.vec,
         x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
-        flat.cols.data_ptr(), flat.run_ptr.data_ptr(),
-        flat.layer_runs.data_ptr(), flat.bias_idx.data_ptr(),
+        flat.cols.data_ptr(), flat.run_ptr.data_ptr(), index[0].data_ptr(),
+        index[1].data_ptr(), flat.bias_idx.data_ptr(),
         flat.bias_tiles.data_ptr(),
         None if scales is None else scales.data_ptr(),
         occ0.data_ptr() if gate else None,
+        flat.slots.data_ptr() if gate else None,
         occ.data_ptr() if gate else None,
-        hidden.data_ptr(), out.data_ptr(), B, n_in, n_out, bs,
-        flat.n_layers, flat.hidden_tiles, flat.max_layer_runs, act, fact,
-        _stream())
+        scratch.data_ptr(), scratch.data_ptr() + 4 * n_hidden,
+        flat.arrivals.data_ptr(), out.data_ptr(), B, n_in, n_out, bs,
+        flat.n_layers, flat.hidden_tiles, split.k_slice, split.n_slices,
+        flat.max_layer_steps, act, fact, flat.epoch,
+        _segment_table(flat.segments), _stream(), ctypes.byref(_MEGA_GRID))
     if rc:
         raise RuntimeError(
             f"bsr_megakernel: kernel launch failed, CUDA error {rc}")
+    bsr_megakernel.grid = _MEGA_GRID.value
     if gate:
         bsr_megakernel.gated_launches += 1
         return out, occ
@@ -411,5 +459,14 @@ def bsr_megakernel(x: torch.Tensor, flat,
     return out
 
 
+_MEGA_GRID = ctypes.c_int(0)
+
+
+@functools.lru_cache(maxsize=64)
+def _segment_table(segments):
+    """A flat schedule's layer starts and step count, as a C int array."""
+    starts = [s for s, _ in segments] + [segments[-1][1]]
+    return (ctypes.c_int * len(starts))(*starts)
 bsr_megakernel.launches = 0
 bsr_megakernel.gated_launches = 0
+bsr_megakernel.grid = 0

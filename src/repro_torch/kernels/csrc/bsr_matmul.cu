@@ -15,24 +15,18 @@
 //
 // Design: every weight byte in flight at once.  The unit of work is
 // (schedule step g, K-slice s of its block, chunk of kChunkRows batch rows):
-// 26 steps x 4 slices = 104 CTAs on the final layer.  A CTA
-//   1. issues all its 16-byte weight loads first (each thread owns one
-//      column group of VE elements and up to kMaxVec rows of the slice;
-//      neighbouring threads read neighbouring 16 bytes), then stages x's
-//      [rows, K-slice] in shared memory as f32 while they fly;
-//   2. dequantizes (float(q) * scale) and takes the slice's product for 8
-//      rows at a time (4 for fp8), reduces the kg row-groups in shared memory in a fixed
-//      order, and writes an f32 partial [rows, bn] to `partial` (through L2);
-//   3. counts its arrival on the (run, chunk) counter.  The CTA that arrives
-//      last sums the run's partials in schedule order, then K-slice order,
-//      adds the bias, applies the epilogue, stores the tile and resets the
-//      counter to 0 for the next launch.  The sum's order never depends on
-//      which CTA finished when, so the result is deterministic.
-// The schedule metadata (step -> run, the first partial of each step, the
-// K-slice height and the vector width) is built once in Python when the
-// schedule is compiled.  Accumulation is plain f32 FMA: no tensor cores, no
-// TF32.  Launches of one schedule must be ordered on one stream: they share
-// the arrival counters.
+// 26 steps x 4 slices = 104 CTAs on the final layer.  Each CTA walks one
+// item through split_k.cuh: all its 16-byte weight loads first, x's
+// [rows, K-slice] staged as f32 while they fly, the slice's product reduced
+// over row groups in a fixed order into an f32 partial, then its arrival on
+// the (run, chunk) counter.  The CTA that arrives last sums the run's
+// partials in schedule order, then K-slice order, adds the bias, applies
+// the epilogue, stores the tile and resets the counter, so the result is
+// deterministic.  The megakernel (bsr_kernels.cu) walks every layer the
+// same way.  The schedule metadata (step -> run, the first partial of each
+// step, the K-slice height and the vector width) is built once in Python
+// when the schedule is compiled.  Launches of one schedule must be ordered
+// on one stream: they share the arrival counters.
 //
 // The launch goes on the caller's stream, allocates nothing and returns
 // cudaGetLastError() (or the attribute call's own error).
@@ -40,79 +34,10 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <cstdint>
 
-#include "common.cuh"
+#include "split_k.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kChunkRows = 32;  // batch rows per CTA (grid.y)
-// rows per pass over the weight registers: 4 for fp8's 16-wide vectors,
-// so that the accumulators ([rows][VE]) stay within the register file
-template <int VE>
-__host__ __device__ constexpr int sub_rows() {
-  return VE == 16 ? 4 : 8;
-}
-constexpr int kMaxVec = 8;      // weight vectors a thread holds
-
-// VE weight elements loaded as one unit: 16 bytes when VE > 1, else one.
-template <typename WT, int VE>
-struct WLoad {
-  using Raw = uint4;
-  static __device__ __forceinline__ Raw load(const WT* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-};
-template <typename WT>
-struct WLoad<WT, 1> {
-  using Raw = WT;
-  static __device__ __forceinline__ Raw load(const WT* p) { return p[0]; }
-};
-
-__device__ __forceinline__ float fp8_at(unsigned word, int j) {
-  const __half_raw h = __nv_cvt_fp8_to_halfraw(
-      static_cast<__nv_fp8_storage_t>((word >> (8 * j)) & 0xffu), __NV_E4M3);
-  return __half2float(__half(h));
-}
-
-// the VE weights of one load, widened to f32 and scaled
-template <int VE>
-__device__ __forceinline__ void unpack(const uint4& r, float (&w)[VE],
-                                       float s, const float*) {
-  static_assert(VE == 4, "f32 vectors hold 4 elements");
-  w[0] = __uint_as_float(r.x) * s;
-  w[1] = __uint_as_float(r.y) * s;
-  w[2] = __uint_as_float(r.z) * s;
-  w[3] = __uint_as_float(r.w) * s;
-}
-template <int VE>
-__device__ __forceinline__ void unpack(const uint4& r, float (&w)[VE],
-                                       float s, const __nv_bfloat16*) {
-  static_assert(VE == 8, "bf16 vectors hold 8 elements");
-  const unsigned u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    w[2 * q] = __uint_as_float(u[q] << 16) * s;
-    w[2 * q + 1] = __uint_as_float(u[q] & 0xffff0000u) * s;
-  }
-}
-template <int VE>
-__device__ __forceinline__ void unpack(const uint4& r, float (&w)[VE],
-                                       float s, const __nv_fp8_e4m3*) {
-  static_assert(VE == 16, "fp8 vectors hold 16 elements");
-  const unsigned u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) w[4 * q + j] = fp8_at(u[q], j) * s;
-  }
-}
-template <int VE, typename WT>
-__device__ __forceinline__ void unpack(const WT& r, float (&w)[VE], float s,
-                                       const WT*) {
-  w[0] = to_f32(r) * s;
-}
 
 // partial [n_parts, B, bn] f32; arrivals [n_runs, gridDim.y] int, zero
 // between launches
@@ -129,10 +54,9 @@ __global__ void __launch_bounds__(kThreads)
                       int* arrivals, XT* __restrict__ out, int B, int n_in,
                       int n_out, int bm, int bn, int k_slice, int n_slices,
                       int act) {
-  using Load = WLoad<WT, VE>;
-  constexpr int kSubRows = sub_rows<VE>();
   extern __shared__ float smem[];
   __shared__ int is_last;
+  const Lanes<VE> lanes(bn);
   const int g = blockIdx.x / n_slices;
   const int s = blockIdx.x - g * n_slices;
   const int chunk = blockIdx.y;
@@ -140,109 +64,34 @@ __global__ void __launch_bounds__(kThreads)
   const int nrows = min(kChunkRows, B - b0);
   const int k0 = s * k_slice;
   const int kn = min(k_slice, bm - k0);  // rows of W in this slice
-  const int nc = bn / VE;                 // column groups
-  const int kgs = kThreads / nc;          // row groups
-  const int t = threadIdx.x;
-  const int kg = t / nc;
-  const int cg = t - kg * nc;
-  const bool active = kg < kgs;
 
-  // 1. every weight load of the CTA in flight before anything waits on it
-  typename Load::Raw w[kMaxVec];
-  const WT* wb = blocks + ((size_t)g * bm + k0) * bn + (size_t)cg * VE;
-#pragma unroll
-  for (int i = 0; i < kMaxVec; ++i) {
-    const int k = kg + i * kgs;
-    if (active && k < kn) w[i] = Load::load(wb + (size_t)k * bn);
-  }
+  // 1. every weight load of the CTA in flight before anything waits on it;
+  // the run's metadata is read meanwhile, for the reduction
+  WRegs<WT, VE> w;
+  load_slice<WT, VE>(w, blocks + ((size_t)g * bm + k0) * bn, kn, bn, lanes);
   const float sc = scales != nullptr ? scales[g] : 1.f;
-  float* xs = smem;                          // [kChunkRows][k_slice]
-  float* red = smem + kChunkRows * k_slice;  // [kgs][kSubRows][bn]
-  const XT* xr = x + (size_t)b0 * n_in + (size_t)rows[g] * bm + k0;
-  for (int e = t; e < nrows * k_slice; e += kThreads) {
-    const int i = e / k_slice;
-    const int k = e - i * k_slice;
-    xs[e] = k < kn ? to_f32(xr[(size_t)i * n_in + k]) : 0.f;
-  }
-  __syncthreads();
-
-  // 2. the slice's product, kSubRows rows at a time, into the partial
-  float* part = partial + ((size_t)(part_off[g] + s) * B + b0) * bn;
-  for (int i0 = 0; i0 < nrows; i0 += kSubRows) {
-    if (active) {
-      float acc[kSubRows][VE];
-#pragma unroll
-      for (int r = 0; r < kSubRows; ++r) {
-#pragma unroll
-        for (int j = 0; j < VE; ++j) acc[r][j] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kMaxVec; ++i) {
-        const int k = kg + i * kgs;
-        if (k < kn) {
-          float wf[VE];
-          unpack<VE>(w[i], wf, sc, static_cast<const WT*>(nullptr));
-#pragma unroll
-          for (int r = 0; r < kSubRows; ++r) {
-            // rows past nrows read stale staging; their sums are never stored
-            const float xv = xs[(i0 + r) * k_slice + k];
-#pragma unroll
-            for (int j = 0; j < VE; ++j) acc[r][j] = fmaf(xv, wf[j], acc[r][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kSubRows; ++r) {
-#pragma unroll
-        for (int j = 0; j < VE; ++j)
-          red[(kg * kSubRows + r) * bn + cg * VE + j] = acc[r][j];
-      }
-    }
-    __syncthreads();
-    for (int o = t; o < kSubRows * bn; o += kThreads) {
-      const int r = o / bn;
-      const int n = o - r * bn;
-      if (i0 + r < nrows) {
-        float v = 0.f;
-        for (int q = 0; q < kgs; ++q) v += red[(q * kSubRows + r) * bn + n];
-        __stcg(part + (size_t)(i0 + r) * bn + n, v);
-      }
-    }
-    __syncthreads();  // red is rewritten by the next pass
-  }
-
-  // 3. the last CTA of the (run, chunk) reduces it
-  __threadfence();  // this thread's partial is visible card-wide ...
-  __syncthreads();  // ... for every thread, before the arrival counts
   const int run = step_run[g];
+  const int c = cols[g];
+  float* xs = smem;                      // [k_slice][kXsStride]
+  float* red = smem + xs_floats(k_slice);  // [kgs][kSubRows][bn]
+  stage_slice<false>(xs, x + (size_t)b0 * n_in + (size_t)rows[g] * bm + k0,
+                     n_in, nrows, k_slice, kn);
   const int g0 = run_ptr[run];
   const int g1 = run_ptr[run + 1];
-  if (t == 0) {
-    int* cnt = arrivals + (size_t)run * gridDim.y + chunk;
-    const int expected = (g1 - g0) * n_slices;
-    const int prev = atomicAdd(cnt, 1);
-    is_last = prev == expected - 1;
-    if (is_last) *cnt = 0;  // every arrival of this launch is counted
-  }
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  // a run's partials are contiguous, in schedule order then K-slice order
-  const int c = cols[g];
   const int p0 = part_off[g0];
-  const int np = (g1 - g0) * n_slices;
-  const size_t part_stride = (size_t)B * bn;
-  for (int o = t; o < nrows * bn; o += kThreads) {
-    const int i = o / bn;
-    const int n = o - i * bn;
-    const float* p = partial + ((size_t)p0 * B + b0 + i) * bn + n;
-    const float bv = bias[(size_t)c * bn + n];
-    float v = 0.f;
-#pragma unroll 8
-    for (int q = 0; q < np; ++q) v += __ldcg(p + q * part_stride);
-    store(out + (size_t)(b0 + i) * n_out + (size_t)c * bn + n,
-          activate(v + bv, act));
-  }
+  __syncthreads();
+
+  // 2. the slice's product into the partial
+  float* part = partial + ((size_t)(part_off[g] + s) * B + b0) * bn;
+  slice_product<WT, VE>(w, sc, xs, red, part, nrows, kn, bn, lanes);
+
+  // 3. the last CTA of the (run, chunk) reduces it
+  if (!arrive(arrivals + (size_t)run * gridDim.y + chunk,
+              (g1 - g0) * n_slices, &is_last))
+    return;
+  OutTile<XT> dst{out + (size_t)b0 * n_out + (size_t)c * bn, n_out};
+  reduce_run(partial + ((size_t)p0 * B + b0) * bn, g1 - g0, n_slices,
+             (size_t)B * bn, nrows, bn, bias + (size_t)c * bn, act, dst);
 }
 
 template <typename XT, typename WT, int VE>
@@ -253,9 +102,7 @@ cudaError_t launch(const void* x, const void* blocks, const int* rows,
                    void* out, int B, int n_in, int n_out, int bm, int bn,
                    int n_steps, int k_slice, int n_slices, int act,
                    cudaStream_t stream) {
-  const int kgs = kThreads / (bn / VE);
-  const size_t smem = sizeof(float) * ((size_t)kChunkRows * k_slice +
-                                       (size_t)kgs * sub_rows<VE>() * bn);
+  const size_t smem = sizeof(float) * item_smem_floats<VE>(k_slice, bn);
   auto kernel = bsr_matmul_kernel<XT, WT, VE>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -14,10 +14,9 @@ device.
 Beside the reference's fields, both schedules carry ``run_ptr``: the flat
 start of each output-tile run (a maximal stretch of steps with one output
 tile, i.e. the steps from a ``first`` flag to its ``last``), with the total
-step count appended.  The megakernel hands one run to one CTA;
-``bsr_matmul``'s kernel splits each step's block into K-slices
-(``CompiledSchedule.split``, built here once) and reduces each run's
-partials.
+step count appended.  Both kernels split each step's block into K-slices
+(``CompiledSchedule.split`` and ``FlatSchedule.split``, built here once)
+and reduce each run's partials.
 """
 
 from __future__ import annotations
@@ -210,9 +209,15 @@ class FlatSchedule:
       * ``bias_idx[g]`` — row of ``bias_tiles`` ([total output tiles, bs])
         holding the bias of step ``g``'s output tile;
 
-    and the port's derived run table: ``run_ptr`` (flat start of every
-    output-tile run, step count appended) and ``layer_runs[k]`` (index of
-    layer ``k``'s first run in ``run_ptr``; run count appended).
+    and the port's derived run table ``run_ptr`` (flat start of every
+    output-tile run, step count appended; every layer segment starts a
+    run).  The megakernel walks each layer as ``bsr_matmul`` walks one: ``split`` is
+    the split-K plan of the flat run table, ``split_index`` its
+    (step_run, part_off) rows on the device and ``arrivals`` the per-run
+    arrival counters (zero between launches; grown by the wrapper for
+    larger batches).  ``slots`` and ``epoch`` are the gated launch's
+    per-(layer, tile, row chunk) live-row counts, each tagged with the
+    launch that wrote it.
 
     ``segments[k] = (start, end)`` delimits layer ``k``'s steps; the ``torch``
     lowering consumes exactly these flat arrays one segment at a time, so all
@@ -240,8 +245,15 @@ class FlatSchedule:
     scales: Optional[torch.Tensor] = None
     weight_dtype: str = "f32"
     run_ptr: Optional[torch.Tensor] = None     # int32 [n_runs + 1]
-    layer_runs: Optional[torch.Tensor] = None  # int32 [n_layers + 1]
-    max_layer_runs: int = 0                    # most runs in any one layer
+    max_layer_steps: int = 0                   # most steps in any one layer
+    split: Optional[SplitPlan] = None
+    split_index: Optional[torch.Tensor] = None  # int32 [2, nnz_total]
+    arrivals: Optional[torch.Tensor] = None     # int32 [n_runs * chunks]
+    # the gated megakernel's occupancy slots (int64, epoch-tagged, kept
+    # between launches; made anew by the wrapper when the row-chunk count
+    # changes) and its launch count
+    slots: Optional[torch.Tensor] = None
+    epoch: int = 0
 
     @property
     def nnz(self) -> int:
@@ -343,14 +355,12 @@ def compile_flat_schedule(
 
     # run table: every layer segment starts a run (first[start] == 1)
     run_ptr = _run_ptr(first)
-    run_starts = run_ptr[:-1]
-    layer_runs = np.searchsorted(
-        run_starts, [s for s, _ in segments] + [off]).astype(np.int32)
-    runs_per_layer = np.diff(layer_runs)
+    blocks = torch.cat([sch.blocks for sch in schedules])
+    split = split_plan(run_ptr, bs, bs, blocks.element_size())
 
     hidden_tiles = max([lay.grid_out for lay in layers[:-1]] or [1])
     return FlatSchedule(
-        blocks=torch.cat([sch.blocks for sch in schedules]),
+        blocks=blocks,
         rows=_on(device, rows),
         cols=_on(device, cols),
         first=_on(device, first),
@@ -370,8 +380,11 @@ def compile_flat_schedule(
         scales=scales,
         weight_dtype=wdt,
         run_ptr=_on(device, run_ptr),
-        layer_runs=_on(device, layer_runs),
-        max_layer_runs=int(runs_per_layer.max()),
+        max_layer_steps=max(e - s for s, e in segments),
+        split=split,
+        split_index=_on(device, np.stack([split.step_run, split.part_off])),
+        arrivals=torch.zeros(len(run_ptr) - 1, dtype=torch.int32,
+                             device=device),
     )
 
 

@@ -21,6 +21,7 @@ import torch
 from conftest import FakeClock
 
 from repro.engine import Engine as JaxEngine
+from repro.engine import backends as jbackends
 from repro.serving import BucketedPlanSet as JaxPlanSet
 from repro.serving import SparseServer as JaxServer
 from repro_torch.convert import layers_from_numpy
@@ -28,6 +29,8 @@ from repro_torch.engine import Engine
 from repro_torch.kernels import bsr_matmul as K
 from repro_torch.obs import Tracer
 from repro_torch.serving import BucketedPlanSet, SparseServer
+from test_torch_kernels import (FLAT_CASES, JAX_ACT, flat_schedules,
+                                mega_emulate)
 
 TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=3e-2, atol=3e-2)}
 PORT_BACKENDS = ("kernel", "torch")
@@ -203,6 +206,38 @@ def test_kernel_occupancy_output_matches_torch(make_stack):
     np.testing.assert_allclose(out(yk), out(yt), **TOL["f32"])
 
 
+@pytest.mark.parametrize("sizes,density,xdt,wdt,batch,act", FLAT_CASES)
+def test_gated_megakernel_emulation_matches_pallas(make_stack, sizes, density,
+                                                   xdt, wdt, batch, act):
+    """The gated megakernel's decomposition on the CPU (dead steps compute
+    no product and write zero partials; live rows counted per 32-row chunk)
+    against the reference's gated Pallas megakernel (interpret): output
+    within tolerance and bit-equal to the ungated emulation, per-chunk
+    counts summing to the reference's occupancy."""
+    jls = kill_tiles(make_stack(sizes=sizes, density=density, block=32,
+                                seed=batch), 0.5)
+    jflat, tflat = flat_schedules(jls, wdt)
+    acts = [JAX_ACT[act]] * (len(jls) - 1) + [None]
+    measure = jbackends.make_fused_measure(jls, jflat, acts, "interpret")
+    x = zero_input_tiles(np.random.default_rng(batch).standard_normal(
+        (batch, sizes[0])).astype(np.float32), 32, 1)
+    jx = jnp.asarray(x, jnp.bfloat16 if xdt == "bf16" else jnp.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if xdt == "bf16"
+                                else torch.float32)
+    y_ref, occs_ref = measure(jx)
+    y, slots = mega_emulate(tx, tflat, act, "none", gate=True)
+    assert torch.equal(y, mega_emulate(tx, tflat, act, "none"))
+    np.testing.assert_allclose(out(y), out(y_ref), **TOL[xdt])
+    chunks = -(-batch // 32)
+    assert len(slots) == len(jls) - 1
+    for k, sl in enumerate(slots):
+        assert sl.shape == (jls[k].grid_out, chunks)
+        np.testing.assert_array_equal(sl.sum(dim=1).numpy(),
+                                      np.asarray(occs_ref[k + 1]))
+    if act == "relu":       # the killed tiles are dead: gating skips steps
+        assert any(not (sl > 0).any(dim=1).all() for sl in slots)
+
+
 def test_measure_dynamic_requires_gated_fused(make_stack):
     tl = layers_from_numpy(make_stack())
     x = np.random.default_rng(8).standard_normal((2, 128)).astype(np.float32)
@@ -376,6 +411,7 @@ def test_cuda_gated_megakernel_matches_plain(make_stack, cuda_device, wdt):
                                             gate=True, occ0=occ0)
     assert torch.equal(occ.cpu(), occ_ref.cpu())
     assert torch.equal(y, K.bsr_megakernel(x, plan.flat, "relu", "none"))
+    assert not plan.flat.arrivals.any()     # each run's reducer reset them
     np.testing.assert_allclose(out(y.cpu()), out(y_ref.cpu()), rtol=1e-4,
                                atol=1e-4)
     assert (K.bsr_megakernel.gated_launches, K.bsr_megakernel.launches) == \

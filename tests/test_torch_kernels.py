@@ -13,6 +13,9 @@ output tolerance.
 Tests that need the card are marked ``cuda`` and skip without one.
 """
 
+import dataclasses
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -75,10 +78,14 @@ def test_bsr_matmul_plain_matches_pallas(sizes, block, density, xdt, wdt,
     assert K.bsr_matmul.launches == 0      # the plain version ran
 
 
-def split_emulate(x: torch.Tensor, sch, bias: torch.Tensor, act) -> torch.Tensor:
-    """``bsr_matmul``'s kernel decomposition on the CPU: one f32 partial per
+def split_emulate(x: torch.Tensor, sch, bias: torch.Tensor, act, live=None,
+                  out_dtype=None) -> torch.Tensor:
+    """The split-K walk of both kernels on the CPU: one f32 partial per
     (step, K-slice), each run's partials summed in schedule order, then
-    K-slice order, then bias and epilogue."""
+    K-slice order, then bias and epilogue.  ``live`` (one bool per input
+    tile) makes it gated: a step on a dead tile computes no product and
+    writes a zero partial, as the gated megakernel does.  The output is
+    stored in ``out_dtype`` (default ``x.dtype``)."""
     split = sch.split
     B = x.shape[0]
     _, bm, bn = sch.blocks.shape
@@ -89,11 +96,14 @@ def split_emulate(x: torch.Tensor, sch, bias: torch.Tensor, act) -> torch.Tensor
     part_off = split.part_off.tolist()
     parts = torch.empty((split.n_parts, B, bn))
     for g, r in enumerate(rows):
+        if live is not None and not live[r]:
+            parts[part_off[g]:part_off[g] + split.n_slices] = 0.0
+            continue
         for s in range(split.n_slices):
             k0 = s * split.k_slice
             k1 = min(bm, k0 + split.k_slice)
             parts[part_off[g] + s] = xf[:, r * bm + k0:r * bm + k1] @ w[g, k0:k1]
-    out = torch.empty((B, sch.grid_out * bn), dtype=x.dtype)
+    out = torch.empty((B, sch.grid_out * bn), dtype=out_dtype or x.dtype)
     for g0, g1 in zip(run_ptr[:-1], run_ptr[1:]):
         acc = torch.zeros((B, bn))
         for g in range(g0, g1):
@@ -101,8 +111,63 @@ def split_emulate(x: torch.Tensor, sch, bias: torch.Tensor, act) -> torch.Tensor
                 acc = acc + parts[part_off[g] + s]
         c = cols[g0]
         y = K.apply_activation(acc + bias[c * bn:(c + 1) * bn], act)
-        out[:, c * bn:(c + 1) * bn] = y.to(x.dtype)
+        out[:, c * bn:(c + 1) * bn] = y.to(out.dtype)
     return out
+
+
+def layer_runs(flat):
+    """The index in ``run_ptr`` of every layer's first run, then the run
+    count (every layer segment starts a run)."""
+    starts = [s for s, _ in flat.segments] + [flat.nnz]
+    return np.searchsorted(flat.run_ptr.numpy(), starts).tolist()
+
+
+def flat_layer(flat, k):
+    """Layer ``k`` of a flat schedule in the fields ``split_emulate`` reads:
+    its steps, its runs and its share of the flat split plan, renumbered
+    from the layer's first step."""
+    s, e = flat.segments[k]
+    lr = layer_runs(flat)
+    split = dataclasses.replace(
+        flat.split, step_run=flat.split.step_run[s:e] - lr[k],
+        part_off=flat.split.part_off[s:e] - flat.split.part_off[s])
+    return SimpleNamespace(
+        split=split, blocks=flat.blocks[s:e], rows=flat.rows[s:e],
+        cols=flat.cols[s:e], run_ptr=flat.run_ptr[lr[k]:lr[k + 1] + 1] - s,
+        scales=None if flat.scales is None else flat.scales[s:e],
+        grid_out=lr[k + 1] - lr[k])
+
+
+def mega_emulate(x: torch.Tensor, flat, act, final_act, gate=False):
+    """The megakernel's decomposition on the CPU: ``split_emulate`` chained
+    over the flat segments, hidden tiles kept in f32.  With ``gate`` a step
+    on a dead input tile computes nothing and contributes a zero partial
+    (layer 0's liveness from ``tile_occupancy`` of x, later layers' from
+    the slots), each hidden
+    tile's live rows are counted per 32-row chunk into the kernel's slots,
+    and the result is ``(y, slots)``: slots[k] is [grid_out_k, chunks]."""
+    from repro_torch.engine import tile_occupancy
+
+    B = x.shape[0]
+    bs = flat.block
+    chunks = -(-B // 32)
+    lr = layer_runs(flat)
+    h, slots = x, []
+    for k in range(flat.n_layers):
+        final = k == flat.n_layers - 1
+        live = None
+        if gate:
+            live = (tile_occupancy(h, bs, h.shape[1] // bs) > 0).tolist() \
+                if k == 0 else (slots[-1] > 0).any(dim=1).tolist()
+        h = split_emulate(h, flat_layer(flat, k),
+                          flat.bias_tiles[lr[k]:lr[k + 1]].reshape(-1),
+                          final_act if final else act, live,
+                          x.dtype if final else torch.float32)
+        if gate and not final:
+            nz = (h.reshape(B, -1, bs) != 0).any(dim=2)          # [B, tiles]
+            nz = torch.cat([nz, nz.new_zeros((chunks * 32 - B, nz.shape[1]))])
+            slots.append(nz.reshape(chunks, 32, -1).sum(dim=1).T.int())
+    return (h, slots) if gate else h
 
 
 def _layer_schedules(sizes, block, density, wdt, seed):
@@ -175,6 +240,19 @@ def test_bsr_matmul_split_emulation_matches_pallas(sizes, block, density, xdt,
     assert err(port_out(y), y_ref) < TOL[xdt]
 
 
+def flat_schedules(jls, wdt):
+    """The reference's and the port's flat schedules of one layer stack,
+    in the same (output-tile grouped) order."""
+    tls = layers_from_numpy(jls)
+    jschs, tschs = [], []
+    for jl, tl in zip(jls, tls):
+        perm = np.lexsort((jl.rows, jl.cols))
+        jschs.append(jops.compile_schedule(jl, perm, wdt))
+        tschs.append(tops.compile_schedule(tl, perm, wdt))
+    return (jops.compile_flat_schedule(jls, jschs),
+            tops.compile_flat_schedule(tls, tschs))
+
+
 MEGA_CASES = [
     ((96, 128, 64), 0.4, "f32", "f32", 3, "relu"),
     ((64, 128, 96, 64), 0.3, "f32", "bf16", 5, "gelu"),
@@ -186,14 +264,7 @@ MEGA_CASES = [
 def test_bsr_megakernel_plain_matches_pallas(make_stack, sizes, density, xdt,
                                              wdt, batch, act):
     jls = make_stack(sizes=sizes, density=density, block=32, seed=batch)
-    tls = layers_from_numpy(jls)
-    jschs, tschs = [], []
-    for jl, tl in zip(jls, tls):
-        perm = np.lexsort((jl.rows, jl.cols))
-        jschs.append(jops.compile_schedule(jl, perm, wdt))
-        tschs.append(tops.compile_schedule(tl, perm, wdt))
-    jflat = jops.compile_flat_schedule(jls, jschs)
-    tflat = tops.compile_flat_schedule(tls, tschs)
+    jflat, tflat = flat_schedules(jls, wdt)
     acts = [JAX_ACT[act]] * (len(jls) - 1) + [None]
     fwd = jbackends.make_fused_forward(jls, jflat, acts, "interpret")
     x = np.random.default_rng(batch).standard_normal(
@@ -206,6 +277,84 @@ def test_bsr_megakernel_plain_matches_pallas(make_stack, sizes, density, xdt,
     assert y.dtype == tx.dtype and y.shape == (batch, sizes[-1])
     assert err(port_out(y), y_ref) < TOL[xdt]
     assert K.bsr_megakernel.launches == 0
+
+
+# the megakernel cases, and one at batch 33, which spans two row chunks
+FLAT_CASES = MEGA_CASES + [((96, 128, 64), 0.4, "f32", "f32", 33, "relu")]
+
+
+def mega_item(seg0, steps, n_slices, it):
+    """The megakernel's item ``it`` of a layer whose steps start at
+    ``seg0``: (flat step, K-slice, row chunk), chunk-major."""
+    chunk, q = divmod(it, steps * n_slices)
+    return seg0 + q // n_slices, q % n_slices, chunk
+
+
+@pytest.mark.parametrize("sizes,density,xdt,wdt,batch,act", FLAT_CASES)
+def test_flat_split_plan_covers_every_step_once(make_stack, sizes, density,
+                                                xdt, wdt, batch, act):
+    """The megakernel's work items: every flat step in one run, every
+    (step, slice) partial written once, each run's partials contiguous in
+    schedule order then K-slice order, each layer's items inside its
+    segment and its runs, and the arrival counters zero."""
+    _, flat = flat_schedules(make_stack(sizes=sizes, density=density,
+                                        block=32, seed=batch), wdt)
+    split = flat.split
+    run_ptr = flat.run_ptr.numpy()
+    lr = layer_runs(flat)
+    step_run, part_off = flat.split_index.numpy()
+    np.testing.assert_array_equal(step_run, split.step_run)
+    np.testing.assert_array_equal(part_off, split.part_off)
+    n_steps = flat.nnz
+    assert len(step_run) == n_steps and run_ptr[-1] == n_steps
+    owners = np.zeros(split.n_parts, dtype=int)
+    for g in range(n_steps):
+        owners[part_off[g]:part_off[g] + split.n_slices] += 1
+    assert (owners == 1).all()
+    for run in range(len(run_ptr) - 1):
+        g0, g1 = run_ptr[run], run_ptr[run + 1]
+        assert (step_run[g0:g1] == run).all()
+        np.testing.assert_array_equal(
+            part_off[g0:g1], part_off[g0] + split.n_slices * np.arange(g1 - g0))
+    chunks = -(-batch // 32)
+    items = []
+    for k, (s, e) in enumerate(flat.segments):
+        assert run_ptr[lr[k]] == s and run_ptr[lr[k + 1]] == e
+        layer_items = [mega_item(s, e - s, split.n_slices, it)
+                       for it in range((e - s) * split.n_slices * chunks)]
+        for g, _, _ in layer_items:
+            assert s <= g < e
+            assert lr[k] <= step_run[g] < lr[k + 1]
+        items += layer_items
+    assert sorted(items) == [(g, sl, c) for g in range(n_steps)
+                             for sl in range(split.n_slices)
+                             for c in range(chunks)]
+    assert flat.max_layer_steps == max(e - s for s, e in flat.segments)
+    assert (split.n_slices - 1) * split.k_slice < flat.block <= \
+        split.n_slices * split.k_slice
+    assert flat.arrivals.numel() == len(run_ptr) - 1 and \
+        not flat.arrivals.any()
+
+
+@pytest.mark.parametrize("sizes,density,xdt,wdt,batch,act", FLAT_CASES)
+def test_megakernel_split_emulation_matches_pallas(make_stack, sizes, density,
+                                                   xdt, wdt, batch, act):
+    """The megakernel's decomposition, emulated on the CPU in its reduction
+    order with f32 hidden tiles, against the reference's Pallas megakernel
+    (interpret)."""
+    jls = make_stack(sizes=sizes, density=density, block=32, seed=batch)
+    jflat, tflat = flat_schedules(jls, wdt)
+    acts = [JAX_ACT[act]] * (len(jls) - 1) + [None]
+    fwd = jbackends.make_fused_forward(jls, jflat, acts, "interpret")
+    x = np.random.default_rng(batch).standard_normal(
+        (batch, sizes[0])).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16 if xdt == "bf16" else jnp.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if xdt == "bf16"
+                                else torch.float32)
+    y_ref = np.asarray(fwd(jx).astype(jnp.float32))
+    y = mega_emulate(tx, tflat, act, "none")
+    assert y.dtype == tx.dtype and y.shape == (batch, sizes[-1])
+    assert err(port_out(y), y_ref) < TOL[xdt]
 
 
 @pytest.mark.parametrize("act", ["relu", "none"])
@@ -274,12 +423,16 @@ def test_cuda_kernels_match_plain(make_stack, cuda_device, wdt, batch):
     y = K.bsr_megakernel(x, flat, "gelu", "none")
     y_ref = K.bsr_megakernel_plain(x, flat, "gelu", "none")
     assert err(y.cpu(), y_ref.cpu()) < 1e-4
-    bias = torch.from_numpy(tls[0].bias).to(cuda_device)
+    assert not flat.arrivals.any()
+    biases = [torch.from_numpy(l.bias).to(cuda_device) for l in tls]
+    # one split-K walk: with f32 x, bit-equal to two bsr_matmul launches
+    h = K.bsr_matmul(x, schs[0], biases[0], "gelu")
+    assert torch.equal(y, K.bsr_matmul(h, schs[1], biases[1], "none"))
     for _ in range(2):           # the arrival counters reset themselves
-        y = K.bsr_matmul(x, schs[0], bias, "relu")
-        y_ref = K.bsr_matmul_plain(x, schs[0], bias, "relu")
+        y = K.bsr_matmul(x, schs[0], biases[0], "relu")
+        y_ref = K.bsr_matmul_plain(x, schs[0], biases[0], "relu")
         assert err(y.cpu(), y_ref.cpu()) < 1e-4
-    assert (K.bsr_matmul.launches, K.bsr_megakernel.launches) == (2, 1)
+    assert (K.bsr_matmul.launches, K.bsr_megakernel.launches) == (4, 1)
     assert not schs[0].arrivals.any()
 
 

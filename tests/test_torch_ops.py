@@ -82,13 +82,12 @@ def test_compile_flat_schedule_matches_reference(make_stack, wdt):
     if jf.scales is not None:
         np.testing.assert_array_equal(np.asarray(jf.scales), tf.scales.numpy())
     # the port's run table: each layer's runs, in flat order
-    layer_runs = tf.layer_runs.numpy()
     run_ptr = tf.run_ptr.numpy()
     for k, (s, e) in enumerate(tf.segments):
-        starts = run_ptr[layer_runs[k]:layer_runs[k + 1]]
-        assert starts[0] == s and run_ptr[layer_runs[k + 1]] == e
+        starts = run_ptr[(run_ptr >= s) & (run_ptr < e)]
+        assert starts[0] == s and e in run_ptr
         assert len(starts) == tls[k].grid_out
-    assert tf.max_layer_runs == max(l.grid_out for l in tls)
+    assert tf.max_layer_steps == max(e - s for s, e in tf.segments)
 
 
 def test_flat_schedule_rejects_non_uniform_tiles():
