@@ -29,7 +29,7 @@ Phases, each of which must pass (any failure exits non-zero):
      fraction below 1;
   4. main path: ``repro_torch.launch.serve --sparse-ffnn --batch 4
      --requests 64 --reorder-iters 300`` in-process — every request answered,
-     answers equal to the plan's torch-backend safe twin, and one megakernel
+     answers equal to the plan's plain (torch-backend) version, and one megakernel
      launch per forward; again with ``--no-fuse``, one bsr_matmul launch per
      layer per forward; again with ``--gate``, one gated megakernel launch
      per forward and per dynamic-I/O sample, on Gaussian requests and then
@@ -46,7 +46,25 @@ Phases, each of which must pass (any failure exits non-zero):
      Granite-3.0-1B-A400M (E = 32, C = 640, d = 1024, f = 512, gelu), f32
      and bf16, f_tile 128 and 512, and bf16 with the other row tile (64
      rows per CTA); one call through its entry point, and its times as in
-     5, both bf16 row tiles among them.
+     5, both bf16 row tiles among them;
+  7. the serving runtime at the BERT net's full width, gated, ``--batch
+     32``, all of it through one ``--plan-store`` in a temporary directory:
+     the plan set built twice, cold then warm (a plan-store hit with 0
+     annealer iterations, outputs bit-equal on the card); 8 threads x 50
+     launches of the gated megakernel on one flat schedule, each output
+     bit-equal to the ungated kernel's and each occupancy equal to the
+     plain version's; ``--async --workers 4`` with 256 requests in bursts
+     of mixed sizes from 4 submitter threads (answers equal to the plain
+     version within 1e-4, gated launches exactly forwards plus dynamic-I/O
+     samples, no batch degraded); a swap to new weights under traffic
+     (every answer the old or the new plan's); ``--models 2`` (every answer
+     its own model's); failures injected at ``server.run_batch`` tripping
+     ``--breaker 2`` (degraded batches run on the safe twin, one
+     ``bsr_matmul`` launch per layer and no megakernel; the probe after the
+     cool-down launches the gated megakernel again); POSTs to the HTTP
+     front door and a GET of the Prometheus endpoint; and the serving rate
+     for ``--workers 0``, ``1`` and ``4`` over timed windows of a few
+     seconds each, and the card's busy share of a profiled window.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the ``kernels``
@@ -62,7 +80,10 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +108,14 @@ MOE_E, MOE_C, MOE_D, MOE_F = 32, 640, 1024, 512
 MOE_F_TILES = (128, 512)
 # the gated checks: input tiles zeroed in x, hidden tiles killed
 DEAD_IN_TILES, KILL_BIAS = 4, -10.0
+# phase 7: the serving runtime's top bucket, traffic and thread counts
+RUNTIME_B, RUNTIME_REQUESTS, SUBMITTERS = 32, 256, 4
+CONC_THREADS, CONC_LAUNCHES = 8, 50
+RATE_WORKERS = (0, 1, 4)
+# the rates: requests per submit_all call (under the admission bound), the
+# least seconds of one timed window, and of the profiled one
+RATE_CHUNK, RATE_WINDOW_S, PROFILED_WINDOW_S = 512, 3.0, 1.0
+WAIT_S = 120.0
 # H100 SXM data-sheet peaks: HBM bytes/s, f32 FMA operations/s outside the
 # tensor cores (the kernels' arithmetic) and bf16 tensor-core operations/s.
 HBM_BPS = 3.35e12
@@ -489,13 +518,14 @@ def phase_main_path(no_fuse):
     rids = sorted(report.inputs)
     x = torch.from_numpy(np.stack([report.inputs[r] for r in rids])).cuda()
     y = torch.from_numpy(np.stack([report.outputs[r] for r in rids]))
-    y_ref = plans.base.safe_twin()(x).cpu()
+    y_ref = plans.base.plain()(x).cpu()
     err, _ = rel_err(y, y_ref)
     check(y.shape == (64, SIZES[-1]) and bool(torch.isfinite(y).all()),
           "served answers are not finite [64, 1024]")
     check(err < TOL[torch.float32],
-          f"served answers vs torch safe twin: error {err:.3e}")
-    print(f"main path answers vs torch-backend safe twin: error {err:.3e}")
+          f"served answers vs plain version: error {err:.3e}")
+    print(f"main path answers vs plain (torch-backend) version: error "
+          f"{err:.3e}")
     return launches, server, args
 
 
@@ -594,12 +624,12 @@ def phase_gated_main_path():
     y = torch.from_numpy(y)
     check(y.shape == (128, SIZES[-1]) and bool(torch.isfinite(y).all()),
           "gated answers are not finite [128, 1024]")
-    y_ref = base.safe_twin()(torch.from_numpy(x).cuda()).cpu()
+    y_ref = base.plain()(torch.from_numpy(x).cuda()).cpu()
     err, _ = rel_err(y, y_ref)
     check(err < TOL[torch.float32],
-          f"gated answers vs torch safe twin: error {err:.3e}")
-    print(f"main path --gate answers vs torch-backend safe twin: error "
-          f"{err:.3e}")
+          f"gated answers vs plain version: error {err:.3e}")
+    print(f"main path --gate answers vs plain (torch-backend) version: "
+          f"error {err:.3e}")
     return launches["bsr_megakernel_gated"]
 
 
@@ -862,6 +892,482 @@ def phase_trace(server, args):
           + "; ".join(f"{n} {t / 1e3:.3f} ms" for n, t in top))
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: the serving runtime
+# --------------------------------------------------------------------------- #
+
+def run_threads(fns, timeout=WAIT_S):
+    """Run each function on its own thread; a failure in any fails the
+    phase, and so does a thread still running after ``timeout``."""
+    errors = []
+
+    def guard(fn):
+        try:
+            fn()
+        except BaseException as e:      # re-raised below, on this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=guard, args=(fn,), daemon=True)
+               for fn in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    check(not any(t.is_alive() for t in threads),
+          f"a thread was still running after {timeout} s")
+    if errors:
+        raise errors[0]
+
+
+def runtime_args(store, *extra):
+    """``serve --sparse-ffnn --gate --batch 32`` through the plan store."""
+    from repro_torch.launch import serve
+
+    return serve.parse_args(
+        ["--sparse-ffnn", "--gate", "--ffnn-sizes", *map(str, SIZES),
+         "--density", str(DENSITY), "--block", str(BLOCK), "--batch",
+         str(RUNTIME_B), "--reorder-iters", str(REORDER_ITERS), "--requests",
+         str(RUNTIME_REQUESTS), "--plan-store", store, *extra])
+
+
+def mixed_rows(rng, n, seed_shift=0):
+    """Gaussian rows, each with its own set of zero input tiles, so that
+    gating decisions differ from row to row."""
+    x = rng.standard_normal((n, SIZES[0])).astype(np.float32)
+    grid = SIZES[0] // BLOCK
+    for r in range(n):
+        period = 2 + (r + seed_shift) % 3
+        for t in range(grid):
+            if (t + r + seed_shift) % period == 0:
+                x[r, t * BLOCK:(t + 1) * BLOCK] = 0.0
+    return x
+
+
+def submit_all(runtime, xs, n_threads=SUBMITTERS, model=None, seed=0,
+               closed=True):
+    """``n_threads`` submitters share the rows ``xs``; each sends bursts of
+    1..RUNTIME_B rows.  ``closed``: each burst's answers are waited for
+    before the next burst (the batches then come in mixed sizes, and the
+    rate is bound by the scheduler's wait-or-fire policy); otherwise every
+    burst is sent at once and the answers are waited for at the end (the
+    queue stays full: the rate is the runtime's capacity).  Returns the
+    answers (row order) and the wall time from the first submit to the
+    last answer."""
+    answers = [None] * len(xs)
+
+    def client(k):
+        rng = np.random.default_rng(seed + k)
+        mine = list(range(k, len(xs), n_threads))
+        pos, sent = 0, []
+        while pos < len(mine):
+            burst = mine[pos:pos + int(rng.integers(1, RUNTIME_B + 1))]
+            pos += len(burst)
+            for i in burst:
+                if model is None:
+                    sent.append((i, (runtime.submit(xs[i]),)))
+                else:
+                    name = model(i)
+                    sent.append((i, (name, runtime.submit(name, xs[i]))))
+            if closed or pos == len(mine):
+                for i, key in sent:
+                    check(key[-1] is not None, "a request was not admitted")
+                    answers[i] = runtime.wait(*key, timeout=WAIT_S)
+                sent = []
+
+    t0 = time.perf_counter()
+    run_threads([lambda k=k: client(k) for k in range(n_threads)])
+    wall = time.perf_counter() - t0
+    check(all(y is not None for y in answers), "a request went unanswered")
+    return np.stack(answers), wall
+
+
+def twin_err(plans, xs, ys):
+    """Relative error of served answers against the plan's plain
+    (torch-backend) version."""
+    ref = plans.base.plain()(torch.from_numpy(np.asarray(xs)).cuda())
+    return rel_err(torch.from_numpy(np.asarray(ys)), ref.cpu())[0]
+
+
+def concurrent_gated(K, flat, rng):
+    """CONC_THREADS threads launch the gated megakernel CONC_LAUNCHES times
+    each on one flat schedule, each thread on its own input (batch sizes
+    1..33, different dead input tiles).  Returns (outputs not bit-equal to
+    the ungated kernel's, occupancies unequal to the plain version's,
+    launches)."""
+    from repro_torch.engine import tile_occupancy
+
+    sizes = (1, 4, 32, 33, 7, 16, 32, 33)
+    cases = []
+    for t in range(CONC_THREADS):
+        x = torch.from_numpy(mixed_rows(rng, sizes[t % len(sizes)],
+                                        seed_shift=t)).cuda()
+        occ0 = tile_occupancy(x, BLOCK, SIZES[0] // BLOCK)
+        y_ungated = K.bsr_megakernel(x, flat, "gelu", "none")
+        _, occ_ref = K.bsr_megakernel_plain(x, flat, "gelu", "none",
+                                            gate=True, occ0=occ0)
+        cases.append((x, occ0, y_ungated, occ_ref))
+    torch.cuda.synchronize()
+    outs = [[] for _ in range(CONC_THREADS)]
+    start = threading.Barrier(CONC_THREADS)
+
+    def work(t):
+        x, occ0, _, _ = cases[t]
+        start.wait(timeout=WAIT_S)
+        for _ in range(CONC_LAUNCHES):
+            outs[t].append(K.bsr_megakernel(x, flat, "gelu", "none",
+                                            gate=True, occ0=occ0))
+
+    run_threads([lambda t=t: work(t) for t in range(CONC_THREADS)])
+    torch.cuda.synchronize()
+    bad_y = bad_occ = 0
+    for (x, _, y_ungated, occ_ref), got in zip(cases, outs):
+        for y, occ in got:
+            bad_y += not torch.equal(y, y_ungated)
+            bad_occ += not torch.equal(occ.cpu(), occ_ref.cpu())
+    return bad_y, bad_occ, sum(len(o) for o in outs)
+
+
+def phase_plan_store(store, rng):
+    """The plan set built twice through one store: cold, then a hit."""
+    from repro_torch.launch import serve
+
+    args = runtime_args(store)
+    cold, _ = serve.build_server(args)
+    warm, _ = serve.build_server(args)
+    check(not cold.cache_hit and cold.base.annealer_iters == REORDER_ITERS,
+          f"first build: hit={cold.cache_hit}, "
+          f"{cold.base.annealer_iters} annealer iters")
+    check(warm.cache_hit and warm.base.annealer_iters == 0,
+          f"second build: hit={warm.cache_hit}, "
+          f"{warm.base.annealer_iters} annealer iters")
+    x = torch.from_numpy(mixed_rows(rng, RUNTIME_B)).cuda()
+    check(torch.equal(cold.base(x), warm.base(x)),
+          "the warm plan's outputs are not bit-equal to the cold plan's")
+    print(f"plan store: cold build {cold.compile_s:.3f} s "
+          f"({cold.base.annealer_iters} annealer iters), warm build "
+          f"{warm.compile_s:.3f} s (plan-store hit, "
+          f"{warm.base.annealer_iters} iters); outputs bit-equal on the card")
+    return warm
+
+
+def phase_concurrent(flat, rng):
+    from repro_torch.kernels import bsr_matmul as K
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)         # switch threads as often as it can
+    try:
+        bad_y, bad_occ, n = concurrent_gated(K, flat, rng)
+    finally:
+        sys.setswitchinterval(interval)
+    print(f"concurrent gated launches: {CONC_THREADS} threads x "
+          f"{CONC_LAUNCHES} on one flat schedule, {n} launches; outputs not "
+          f"bit-equal to the ungated kernel: {bad_y}; occupancies unequal "
+          f"to the plain version's: {bad_occ}")
+    check(n == CONC_THREADS * CONC_LAUNCHES and bad_y == 0 and bad_occ == 0,
+          "concurrent gated launches disagree with the ungated kernel")
+
+
+def phase_pipeline(store, rng):
+    """``--async --workers 4``: 256 requests from 4 submitters."""
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.launch import serve
+
+    args = runtime_args(store, "--async", "--workers", "4")
+    plans, server = serve.build_server(args)
+    check(plans.cache_hit, "the pipeline's plan set missed the store")
+    xs = mixed_rows(rng, RUNTIME_REQUESTS)
+    calls0 = sum(plans.bucket_calls.values())
+    server.start()
+    K.reset_launches()
+    try:
+        ys, wall = submit_all(server, xs)
+    finally:
+        check(server.shutdown(drain=True, drain_timeout_s=WAIT_S),
+              "the pipeline did not shut down")
+    torch.cuda.synchronize()
+    launches = {"bsr_matmul": K.bsr_matmul.launches,
+                "bsr_megakernel": K.bsr_megakernel.launches,
+                "bsr_megakernel_gated": K.bsr_megakernel.gated_launches}
+    snap = server.snapshot()
+    forwards, samples = snap["batches"], snap["io"]["batches_measured"]
+    print(f"pipeline --workers 4: {server.metrics.summary()}; {forwards} "
+          f"forwards, {samples} dynamic-I/O samples, launches {launches}, "
+          f"bucket hist {snap['bucket_hist']}, wall {wall:.3f} s")
+    check(snap["served"] == RUNTIME_REQUESTS and snap["batch_failures"] == 0
+          and snap["degraded_batches"] == 0 and snap["io_measure_failed"] == 0,
+          f"pipeline: served {snap['served']}, failures "
+          f"{snap['batch_failures']}, degraded {snap['degraded_batches']}, "
+          f"failed samples {snap['io_measure_failed']}")
+    check(sum(plans.bucket_calls.values()) - calls0 == forwards,
+          "bucket calls differ from the batches served")
+    check(launches == {"bsr_matmul": 0, "bsr_megakernel": 0,
+                       "bsr_megakernel_gated": forwards + samples},
+          "gated launches differ from forwards plus dynamic-I/O samples")
+    check(len(snap["bucket_hist"]) > 1, "every batch had one size")
+    err = twin_err(plans, xs, ys)
+    check(err < TOL[torch.float32], f"pipeline answers vs plain: {err:.3e}")
+    print(f"pipeline answers vs plain (torch-backend) version: error "
+          f"{err:.3e}")
+
+
+def phase_swap(store, rng):
+    """A swap to new weights (seed 1, built off the serving path) while 4
+    threads keep submitting: every answer is the old or the new plan's."""
+    from repro_torch.launch import serve
+
+    args = runtime_args(store, "--async", "--workers", "4")
+    plans, server = serve.build_server(args)
+    xs = mixed_rows(rng, 16)
+    want_old = plans.base.plain()(torch.from_numpy(xs).cuda()).cpu()
+    results, mu, stop = [], threading.Lock(), threading.Event()
+
+    def client(k):
+        r = np.random.default_rng(50 + k)
+        while not stop.is_set():
+            i = int(r.integers(len(xs)))
+            y = server.wait(server.submit(xs[i]), timeout=WAIT_S)
+            with mu:
+                results.append((i, y))
+
+    def answered():
+        with mu:
+            return len(results)
+
+    def until(n):
+        deadline = time.monotonic() + WAIT_S
+        while answered() < n and time.monotonic() < deadline:
+            time.sleep(0.001)
+
+    new_layers = serve.make_ffnn_layers(SIZES, DENSITY, BLOCK, seed=1)
+    server.start()
+    clients = threading.Thread(target=run_threads, daemon=True, args=(
+        [lambda k=k: client(k) for k in range(SUBMITTERS)],))
+    clients.start()
+    try:
+        until(64)
+        t0 = time.perf_counter()
+        old = server.swap(new_layers)
+        swap_s = time.perf_counter() - t0
+        until(answered() + 64)
+    finally:
+        stop.set()
+        clients.join(WAIT_S)
+        server.shutdown(drain=True, drain_timeout_s=WAIT_S)
+    check(old is plans and not clients.is_alive(), "swap: clients hung")
+    new = server.plans
+    want_new = new.base.plain()(torch.from_numpy(xs).cuda()).cpu()
+    counts = {"old": 0, "new": 0}
+    for i, y in results:
+        check(y is not None, "swap: a request went unanswered")
+        y = torch.from_numpy(y)
+        is_old = rel_err(y, want_old[i])[0] < TOL[torch.float32]
+        is_new = rel_err(y, want_new[i])[0] < TOL[torch.float32]
+        check(is_old != is_new, "swap: an answer matches neither or both "
+              "weight sets")
+        counts["old" if is_old else "new"] += 1
+    m = server.metrics.snapshot()
+    print(f"swap under traffic: {len(results)} answers, {counts['old']} on "
+          f"the old weights, {counts['new']} on the new; swap call "
+          f"{swap_s:.3f} s, of it the build {new.compile_s:.3f} s (cold, "
+          f"{new.base.annealer_iters} annealer iters); swaps {m['swaps']}")
+    check(counts["old"] > 0 and counts["new"] > 0 and m["swaps"] == 1,
+          "swap: the swap did not show in the answers")
+    return swap_s, new.compile_s
+
+
+def phase_router(store, rng):
+    """``--models 2``: each answer is its own model's."""
+    from repro_torch.launch import serve
+
+    args = runtime_args(store, "--async", "--workers", "4", "--models", "2")
+    router = serve.build_router(args)
+    check(all(s.plans.cache_hit for s in router.servers.values()),
+          "the router's plan sets missed the store")
+    xs = mixed_rows(rng, 128)
+    router.start()
+    try:
+        ys, _ = submit_all(router, xs, model=lambda i: f"m{i % 2}")
+    finally:
+        check(router.shutdown(drain=True, drain_timeout_s=WAIT_S),
+              "the router did not shut down")
+    twins = [router.servers[f"m{k}"].plans.base.plain()(
+        torch.from_numpy(xs).cuda()).cpu() for k in (0, 1)]
+    worst = 0.0
+    for i, y in enumerate(torch.from_numpy(ys)):
+        own, other = twins[i % 2][i], twins[1 - i % 2][i]
+        err = rel_err(y, own)[0]
+        check(err < TOL[torch.float32]
+              and rel_err(y, other)[0] > TOL[torch.float32],
+              f"router: request {i} for m{i % 2} crossed models")
+        worst = max(worst, err)
+    snap = router.snapshot()
+    print(f"router --models 2: served {snap['total']['served']} "
+          f"({ {n: m['served'] for n, m in snap['models'].items()} }), every "
+          f"answer its own model's (worst error {worst:.3e})")
+
+
+def phase_breaker(store, rng):
+    """Failures injected at ``server.run_batch`` trip ``--breaker 2``;
+    degraded batches run on the safe twin — one ``bsr_matmul`` launch per
+    layer, no megakernel; after the cool-down the probe launches the gated
+    megakernel again."""
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.launch import serve
+    from repro_torch.serving import FaultInjector
+
+    args = runtime_args(store, "--breaker", "2", "--breaker-cooldown-ms",
+                        "200")
+    plans, server = serve.build_server(args)
+    check(plans.safe is not None, "--breaker built no safe twin")
+    inj = server.injector = FaultInjector()
+    inj.inject("server.run_batch", error=RuntimeError("injected fault"),
+               times=2)
+    xs = mixed_rows(rng, 20)
+    K.reset_launches()
+    for i in range(2):                      # two failed batches: trip
+        rid = server.submit(xs[i])
+        server.step(flush=True)
+        check(server.result(rid) is None, "a failed batch answered")
+    check(server.snapshot()["breaker_state"] == "open",
+          "the breaker did not trip")
+    rids = [server.submit(x) for x in xs[2:14]]
+    server.drain()
+    degraded = [server.result(r) for r in rids]
+    n_degraded = server.metrics.degraded_batches
+    during = (K.bsr_megakernel.gated_launches, K.bsr_megakernel.launches,
+              K.bsr_matmul.launches)
+    time.sleep(0.25)                        # the cool-down
+    rids = [server.submit(x) for x in xs[14:]]
+    server.drain()
+    probe = [server.result(r) for r in rids]
+    snap = server.snapshot()
+    after = (K.bsr_megakernel.gated_launches - during[0],
+             K.bsr_matmul.launches - during[2])
+    print(f"breaker: trips {snap['breaker_trips']}, degraded batches "
+          f"{snap['degraded_batches']}, resets {snap['breaker_resets']}, "
+          f"state {snap['breaker_state']}; while degraded: gated/ungated "
+          f"megakernel launches {during[0]}/{during[1]}, bsr_matmul "
+          f"launches {during[2]}; after the cool-down: gated megakernel "
+          f"launches {after[0]}, bsr_matmul launches {after[1]}")
+    check(snap["breaker_trips"] == 1 and n_degraded > 0
+          and during == (0, 0, (len(SIZES) - 1) * n_degraded),
+          "degraded batches did not run on the twin's bsr_matmul launches")
+    check(snap["breaker_state"] == "closed" and snap["breaker_resets"] == 1
+          and after[0] > 0 and after[1] == 0,
+          "the megakernel launches did not resume after the cool-down")
+    err = twin_err(plans, xs[2:], degraded + probe)
+    check(err < TOL[torch.float32], f"breaker answers vs twin: {err:.3e}")
+
+
+def phase_http(store, rng):
+    """POSTs through the front door, then a GET of the metrics endpoint."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import MetricsServer
+    from repro_torch.serving import HttpFrontDoor
+
+    args = runtime_args(store, "--workers", "2", "--http-port", "0",
+                        "--http-clients", "4", "--metrics-port", "0",
+                        "--requests", "64")
+    plans, server = serve.build_server(args)
+    server.start()
+    metrics = MetricsServer(server.snapshot, port=0).start()
+    front = HttpFrontDoor(server, port=0).start()
+    try:
+        report = serve.drive_http(front, server, args)
+        with urllib.request.urlopen(metrics.url, timeout=30) as resp:
+            text = resp.read().decode("utf-8")
+    finally:
+        front.stop()
+        server.shutdown(drain=True, drain_timeout_s=WAIT_S)
+        metrics.stop()
+    keys = sorted(report.outputs)
+    err = twin_err(plans, [report.inputs[k] for k in keys],
+                   [report.outputs[k] for k in keys])
+    lines = text.splitlines()
+    print(f"http: codes {report.http_codes} over 4 clients, answers vs "
+          f"twin {err:.3e}; metrics endpoint: {len(lines)} lines, e.g. "
+          + "; ".join(ln for ln in lines if ln.startswith(
+              ("repro_served ", "repro_batches "))))
+    check(report.http_codes == {200: 64}, "not every POST was answered")
+    check(err < TOL[torch.float32], f"http answers vs twin: {err:.3e}")
+    check("# TYPE repro_served gauge" in lines and "repro_served 64" in lines,
+          "the metrics endpoint did not return the Prometheus text")
+
+
+def rate_window(server, xs, closed, seed, min_s):
+    """Chunks of the rows ``xs`` through ``submit_all``, back to back, until
+    ``min_s`` seconds have passed: (requests, wall seconds, batches)."""
+    b0, n, k = server.metrics.batches, 0, 0
+    t0 = time.perf_counter()
+    while True:
+        submit_all(server, xs, seed=seed + 1000 * k, closed=closed)
+        n, k = n + len(xs), k + 1
+        wall = time.perf_counter() - t0
+        if wall >= min_s:
+            return n, wall, server.metrics.batches - b0
+
+
+def phase_rates(store, rng):
+    """Requests per second with 0, 1 and 4 workers, two timed windows each
+    of the closed load (burst, then wait) and of the open one (every burst
+    of a chunk at once), and the card's busy share of one profiled
+    open-load window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    xs = mixed_rows(rng, RATE_CHUNK)
+    rows = []
+    for workers in RATE_WORKERS:
+        args = runtime_args(store, "--async", "--workers", str(workers))
+        _, server = serve.build_server(args)
+        server.start()
+        try:
+            rps = {}
+            for closed in (True, False):
+                runs = [rate_window(server, xs, closed, s, RATE_WINDOW_S)
+                        for s in (0, 1)]
+                rps["closed" if closed else "open"] = {
+                    "rps": [n / w for n, w, _ in runs],
+                    "requests": [n for n, _, _ in runs],
+                    "seconds": [w for _, w, _ in runs],
+                    "batches": [b for _, _, b in runs]}
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                n_p, wall_p, batches = rate_window(server, xs, False, 2,
+                                                   PROFILED_WINDOW_S)
+                torch.cuda.synchronize()
+        finally:
+            server.shutdown(drain=True, drain_timeout_s=WAIT_S)
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+        row = {"workers": workers, **rps,
+               "profiled_open_rps": n_p / wall_p, "profiled_requests": n_p,
+               "profiled_batches": batches,
+               "device_busy_ms": busy_us / 1e3,
+               "busy_share": busy_us / 1e6 / wall_p}
+        rows.append(row)
+        print("rate: " + json.dumps(row))
+    return rows
+
+
+def phase_runtime():
+    """Phase 7: the serving runtime on the card, through one plan store."""
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="plan_store_") as store:
+        warm = phase_plan_store(store, rng)
+        phase_concurrent(warm.base.flat, rng)
+        phase_pipeline(store, rng)
+        phase_swap(store, rng)
+        phase_router(store, rng)
+        phase_breaker(store, rng)
+        phase_http(store, rng)
+        phase_rates(store, rng)
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -892,6 +1398,7 @@ def main() -> int:
         phase_trace(server, args)
         launches["moe_ffn"], main_err["moe_ffn"], entries["moe_ffn"] = \
             phase_moe()
+        phase_runtime()
         kernels = kernel_line(entries, launches, main_err)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

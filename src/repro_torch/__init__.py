@@ -9,7 +9,12 @@ names so each counterpart is easy to find:
                   hand-written Hopper kernels (``bsr_matmul``: one layer per
                   launch; ``bsr_megakernel``: the whole net per launch);
   * ``engine``  — ``Engine`` / ``ExecutionPlan`` over those kernels;
-  * ``serving`` — bucketed plans and the step-driven ``SparseServer``;
+  * ``checkpoint`` — atomic, crc-checked manifest directories;
+  * ``serving`` — bucketed plans, the persistent plan store and the serving
+                  runtime (``SparseServer``, step-driven or async with an
+                  executor pool, ``ModelRouter``, hot swap, resilience, the
+                  HTTP front door);
+  * ``obs``     — tracing, bounded series, I/O telemetry, Prometheus text;
   * ``launch.serve`` — ``python -m repro_torch.launch.serve --sparse-ffnn``.
 
 The package imports ``torch`` and numpy only — never ``jax`` and nothing of

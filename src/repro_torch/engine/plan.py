@@ -344,11 +344,21 @@ class ExecutionPlan:
                                    calls=0)
 
     def safe_twin(self) -> "ExecutionPlan":
-        """The plan's safe-mode twin: same schedule, ``torch`` backend, gate
-        off — the identical function through the simplest code path (the
-        ungated forward is bit-identical to the gated one)."""
-        twin = dataclasses.replace(self, backend="torch", gate=False)
+        """The plan's safe-mode twin: same schedule tensors and backend,
+        lowered per layer with the gate off — on the ``kernel`` backend one
+        ungated ``bsr_matmul`` launch per layer (what ``--no-fuse`` runs),
+        the simplest hand-written kernel route.  A circuit breaker degrades
+        to it; it never turns a ``kernel`` plan into plain PyTorch (the
+        reference's twin is its plain ``jnp`` path: ``ROADMAP.md`` §3)."""
+        twin = dataclasses.replace(self, flat=None, gate=False)
         return twin.with_fresh_forward()
+
+    def plain(self) -> "ExecutionPlan":
+        """The plan's plain PyTorch version: same schedule, ``torch``
+        backend, gate off — the ground truth that kernel answers are held
+        against (the ungated forward equals the gated one)."""
+        return dataclasses.replace(self, backend="torch",
+                                   gate=False).with_fresh_forward()
 
     def measure_dynamic(self, x) -> DynamicIOReport:
         """Run one instrumented gated forward on ``x`` and report measured

@@ -14,7 +14,19 @@ schedule by ``ops.compile_schedule`` and ``ops.compile_flat_schedule``.
 
 Each wrapper dispatches on the device of ``x``: a CUDA tensor launches the
 kernel on ``torch.cuda.current_stream()`` (or raises — there is no fallback),
-a CPU tensor runs the plain PyTorch version beside it.  The plain versions
+a CPU tensor runs the plain PyTorch version beside it.
+
+The wrappers are safe to call from several threads.  A schedule keeps device
+state that its launches share — the split-K arrival counters, which each
+launch leaves at zero, and the gated instance's epoch-tagged occupancy
+slots — so each schedule object holds a lock, and the (re)allocation of that
+state, the epoch bump and the launch happen under it; the epoch goes to the
+kernel from a local, never re-read.  The lock orders launches on the host
+only: two launches of one schedule must not overlap on the card either, so
+all launches of a schedule go to one CUDA stream, the one its first launch
+used (another raises).  A Python thread starts on the default stream, so
+serving threads share it: they overlap host work (batch formation, copies,
+``.cpu()``), not kernels, and none may set a stream of its own.  The plain versions
 walk the schedule step by step with the kernels' ``first``/``last``
 semantics, accumulate in f32 and keep hidden activations in f32; they are
 what the kernels are checked against on the card, and what the CPU tests
@@ -23,8 +35,9 @@ run.  Their products assume PyTorch's default full-f32 matmul
 
 ``bsr_matmul.launches`` / ``bsr_megakernel.launches`` count kernel launches
 and ``bsr_megakernel.gated_launches`` the gated megakernel's (plain-version
-calls are not counted); ``reset_launches()`` zeroes all three.
-``bsr_megakernel.grid`` is the cooperative grid size of its last launch.
+calls are not counted), exactly under concurrency; ``reset_launches()``
+zeroes all three.  ``bsr_megakernel.grid`` is the cooperative grid size of
+the last launch.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -111,11 +125,23 @@ def activation_code(act: Activation) -> int:
                          f"{sorted(ACTIVATION_CODES)}") from None
 
 
+# guards the launch counts: ``+=`` on an attribute is not atomic across
+# threads
+_COUNTS = threading.Lock()
+
+
+def count_launch(fn, name: str = "launches") -> None:
+    """Add one to the wrapper ``fn``'s launch count ``fn.<name>``."""
+    with _COUNTS:
+        setattr(fn, name, getattr(fn, name) + 1)
+
+
 def reset_launches() -> None:
     """Zero the kernels' launch counts."""
-    bsr_matmul.launches = 0
-    bsr_megakernel.launches = 0
-    bsr_megakernel.gated_launches = 0
+    with _COUNTS:
+        bsr_matmul.launches = 0
+        bsr_megakernel.launches = 0
+        bsr_megakernel.gated_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +226,29 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _schedule_stream(schedule, name: str) -> int:
+    """The current stream, which must be the one the schedule's launches
+    use (lock held): its shared device state is ordered by that stream."""
+    stream = _stream()
+    if schedule.stream is None:
+        schedule.stream = stream
+    elif schedule.stream != stream:
+        raise RuntimeError(
+            f"{name}: launched on stream {stream:#x}, but this schedule's "
+            f"launches go to stream {schedule.stream:#x}; its arrival "
+            "counters and occupancy slots are shared by its launches, which "
+            "must not overlap on the card")
+    return stream
+
+
+def next_epoch(flat) -> int:
+    """Bump the flat schedule's gated-launch epoch and return it (lock
+    held): a tag that is never 0 and repeats only after 2**32 - 1
+    launches."""
+    flat.epoch = flat.epoch % 0xFFFFFFFF + 1
+    return flat.epoch
+
+
 # --------------------------------------------------------------------------- #
 # one layer per launch
 # --------------------------------------------------------------------------- #
@@ -237,7 +286,7 @@ def bsr_matmul(x: torch.Tensor, schedule, bias: torch.Tensor,
     bfloat16 or float8_e4m3fn, dequantized by ``schedule.scales``.  On the
     card the f32 partials ([steps x K-slices, B, bn]) are allocated here
     with ``torch.empty``; the schedule's arrival counters are shared by its
-    launches, so launches of one schedule must be ordered on one stream.
+    launches, which therefore go to one stream, under ``schedule.lock``.
     """
     B, n_in = x.shape
     _, bm, bn = schedule.blocks.shape
@@ -269,27 +318,42 @@ def bsr_matmul(x: torch.Tensor, schedule, bias: torch.Tensor,
     out = torch.empty((B, n_out), dtype=x.dtype, device=x.device)
     if B == 0:
         return out
+    _launch_matmul(x, schedule, bias, act, out)
+    return out
+
+
+def _launch_matmul(x, schedule, bias, act: int, out) -> None:
+    """``bsr_matmul``'s launch on checked tensors, with its bookkeeping."""
+    B, n_in = x.shape
+    _, bm, bn = schedule.blocks.shape
+    split, index = schedule.split, schedule.split_index
+    n_runs = schedule.run_ptr.numel() - 1
     chunks = -(-B // _ROWS_PER_CTA)
-    if schedule.arrivals is None or schedule.arrivals.numel() < n_runs * chunks:
-        # zero between launches: the last CTA of each run resets its counter
-        schedule.arrivals = torch.zeros(n_runs * chunks, dtype=torch.int32,
-                                        device=x.device)
     partial = torch.empty((split.n_parts, B, bn), dtype=torch.float32,
                           device=x.device)
     scales = schedule.scales
-    rc = _build.load().bsr_matmul_launch(
-        _X_CODES[x.dtype], _W_CODES[schedule.blocks.dtype],
-        x.data_ptr(), schedule.blocks.data_ptr(), schedule.rows.data_ptr(),
-        schedule.cols.data_ptr(), schedule.run_ptr.data_ptr(),
-        index[0].data_ptr(), index[1].data_ptr(), bias.data_ptr(),
-        None if scales is None else scales.data_ptr(), partial.data_ptr(),
-        schedule.arrivals.data_ptr(), out.data_ptr(), B, n_in, n_out, bm, bn,
-        int(schedule.rows.numel()), split.k_slice, split.n_slices, split.vec,
-        act, _stream())
+    with schedule.lock:
+        stream = _schedule_stream(schedule, "bsr_matmul")
+        if schedule.arrivals is None or \
+                schedule.arrivals.numel() < n_runs * chunks:
+            # zero between launches: the last CTA of each run resets it
+            schedule.arrivals = torch.zeros(n_runs * chunks,
+                                            dtype=torch.int32,
+                                            device=x.device)
+        rc = _build.load().bsr_matmul_launch(
+            _X_CODES[x.dtype], _W_CODES[schedule.blocks.dtype],
+            x.data_ptr(), schedule.blocks.data_ptr(),
+            schedule.rows.data_ptr(), schedule.cols.data_ptr(),
+            schedule.run_ptr.data_ptr(), index[0].data_ptr(),
+            index[1].data_ptr(), bias.data_ptr(),
+            None if scales is None else scales.data_ptr(),
+            partial.data_ptr(), schedule.arrivals.data_ptr(),
+            out.data_ptr(), B, n_in, out.shape[1], bm, bn,
+            int(schedule.rows.numel()), split.k_slice, split.n_slices,
+            split.vec, act, stream)
     if rc:
         raise RuntimeError(f"bsr_matmul: kernel launch failed, CUDA error {rc}")
-    bsr_matmul.launches += 1
-    return out
+    count_launch(bsr_matmul)
 
 
 bsr_matmul.launches = 0
@@ -362,9 +426,9 @@ def bsr_megakernel(x: torch.Tensor, flat,
     [B, grid_out_final * block] in ``x.dtype``.  On the card the f32 scratch
     (the hidden ping-pong buffer [2, hidden_tiles, B, block] and the
     partials [steps x K-slices, B, block]) is allocated here with
-    ``torch.empty``.  The flat schedule's arrival counters are shared by its
-    launches, so launches of one flat schedule must be ordered on one
-    stream.
+    ``torch.empty``.  The flat schedule's arrival counters and occupancy
+    slots are shared by its launches, which therefore go to one stream,
+    under ``flat.lock``.
 
     With ``gate=True`` the call takes ``occ0`` (int32 [grid_in_0], the
     live-row counts of x's input tiles, on x's device) and returns
@@ -409,57 +473,63 @@ def bsr_megakernel(x: torch.Tensor, flat,
         occ = torch.zeros((n_occ, flat.hidden_tiles), dtype=torch.int32,
                           device=x.device)
         return (out, occ) if gate else out
+    occ = torch.empty((n_occ, flat.hidden_tiles), dtype=torch.int32,
+                      device=x.device) if gate else None
+    _launch_megakernel(x, flat, act, fact, occ0 if gate else None, occ, out)
+    return (out, occ) if gate else out
+
+
+def _launch_megakernel(x, flat, act: int, fact: int, occ0, occ, out) -> None:
+    """``bsr_megakernel``'s launch on checked tensors, with its bookkeeping;
+    gated when ``occ`` is given."""
+    B, n_in = x.shape
+    bs = flat.block
+    gate = occ is not None
+    split, index = flat.split, flat.split_index
     chunks = -(-B // _ROWS_PER_CTA)
     n_runs = flat.run_ptr.numel() - 1
-    if flat.arrivals is None or flat.arrivals.numel() < n_runs * chunks:
-        # zero between launches: the last CTA of each run resets its counter
-        flat.arrivals = torch.zeros(n_runs * chunks, dtype=torch.int32,
-                                    device=x.device)
     # one f32 scratch: the hidden ping-pong buffer, then the partials
     n_hidden = 2 * flat.hidden_tiles * B * bs
     scratch = torch.empty(n_hidden + split.n_parts * B * bs,
                           dtype=torch.float32, device=x.device)
-    occ = None
-    if gate:
-        # one slot per (hidden layer, tile, row chunk), zeroed anew when the
-        # chunk count changes, so that each keeps one meaning; the kernel
-        # tells this launch's slots by a tag that is never 0 and repeats
-        # only after 2**32 - 1 launches
-        n_slots = n_occ * flat.hidden_tiles * chunks
-        if flat.slots is None or flat.slots.numel() != n_slots:
-            flat.slots = torch.zeros(n_slots, dtype=torch.int64,
-                                     device=x.device)
-        flat.epoch = flat.epoch % 0xFFFFFFFF + 1
-        occ = torch.empty((n_occ, flat.hidden_tiles), dtype=torch.int32,
-                          device=x.device)
     scales = flat.scales
-    rc = _build.load().bsr_megakernel_launch(
-        _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype], split.vec,
-        x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
-        flat.cols.data_ptr(), flat.run_ptr.data_ptr(), index[0].data_ptr(),
-        index[1].data_ptr(), flat.bias_idx.data_ptr(),
-        flat.bias_tiles.data_ptr(),
-        None if scales is None else scales.data_ptr(),
-        occ0.data_ptr() if gate else None,
-        flat.slots.data_ptr() if gate else None,
-        occ.data_ptr() if gate else None,
-        scratch.data_ptr(), scratch.data_ptr() + 4 * n_hidden,
-        flat.arrivals.data_ptr(), out.data_ptr(), B, n_in, n_out, bs,
-        flat.n_layers, flat.hidden_tiles, split.k_slice, split.n_slices,
-        flat.max_layer_steps, act, fact, flat.epoch,
-        _segment_table(flat.segments), _stream(), ctypes.byref(_MEGA_GRID))
+    grid = ctypes.c_int(0)
+    with flat.lock:
+        stream = _schedule_stream(flat, "bsr_megakernel")
+        if flat.arrivals is None or flat.arrivals.numel() < n_runs * chunks:
+            # zero between launches: the last CTA of each run resets it
+            flat.arrivals = torch.zeros(n_runs * chunks, dtype=torch.int32,
+                                        device=x.device)
+        epoch = 0
+        if gate:
+            # one slot per (hidden layer, tile, row chunk), zeroed anew when
+            # the chunk count changes, so that each keeps one meaning; the
+            # kernel tells this launch's slots by its epoch
+            n_slots = occ.numel() * chunks
+            if flat.slots is None or flat.slots.numel() != n_slots:
+                flat.slots = torch.zeros(n_slots, dtype=torch.int64,
+                                         device=x.device)
+            epoch = next_epoch(flat)
+        rc = _build.load().bsr_megakernel_launch(
+            _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype], split.vec,
+            x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
+            flat.cols.data_ptr(), flat.run_ptr.data_ptr(),
+            index[0].data_ptr(), index[1].data_ptr(),
+            flat.bias_idx.data_ptr(), flat.bias_tiles.data_ptr(),
+            None if scales is None else scales.data_ptr(),
+            occ0.data_ptr() if gate else None,
+            flat.slots.data_ptr() if gate else None,
+            occ.data_ptr() if gate else None,
+            scratch.data_ptr(), scratch.data_ptr() + 4 * n_hidden,
+            flat.arrivals.data_ptr(), out.data_ptr(), B, n_in, out.shape[1],
+            bs, flat.n_layers, flat.hidden_tiles, split.k_slice,
+            split.n_slices, flat.max_layer_steps, act, fact, epoch,
+            _segment_table(flat.segments), stream, ctypes.byref(grid))
     if rc:
         raise RuntimeError(
             f"bsr_megakernel: kernel launch failed, CUDA error {rc}")
-    bsr_megakernel.grid = _MEGA_GRID.value
-    if gate:
-        bsr_megakernel.gated_launches += 1
-        return out, occ
-    bsr_megakernel.launches += 1
-    return out
-
-
-_MEGA_GRID = ctypes.c_int(0)
+    bsr_megakernel.grid = grid.value
+    count_launch(bsr_megakernel, "gated_launches" if gate else "launches")
 
 
 @functools.lru_cache(maxsize=64)

@@ -19,7 +19,8 @@ of f, which changes only the order of the f32 summation.
 A CUDA tensor launches the kernel on ``torch.cuda.current_stream()`` (or
 raises — there is no fallback); a CPU tensor runs ``moe_ffn_plain``, which
 walks the f-tiles with f32 products.  ``moe_ffn.launches`` counts kernel
-launches (plain-version calls are not counted).
+launches, exactly under concurrency (plain-version calls are not counted).
+The kernel keeps no state between launches, so threads may call it freely.
 """
 
 from __future__ import annotations
@@ -30,7 +31,12 @@ from typing import Optional
 import torch
 
 from . import _build
-from .bsr_matmul import Activation, activation_code, apply_activation
+from .bsr_matmul import (
+    Activation,
+    activation_code,
+    apply_activation,
+    count_launch,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448              # bytes of shared memory a CTA may use (H100)
@@ -193,7 +199,7 @@ def launch(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"moe_ffn: kernel launch failed, CUDA error {rc}")
-    moe_ffn.launches += 1
+    count_launch(moe_ffn)
     return out
 
 

@@ -22,6 +22,7 @@ and reduce each run's partials.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -118,6 +119,12 @@ class CompiledSchedule:
     split: Optional[SplitPlan] = None
     split_index: Optional[torch.Tensor] = None
     arrivals: Optional[torch.Tensor] = None
+    # held by the wrapper around the (re)allocation of ``arrivals`` and
+    # the launch, so threads never share a launch's device state; every
+    # launch goes to ``stream``, the CUDA stream of the first
+    lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+    stream: Optional[int] = None
 
     @property
     def weight_bytes(self) -> int:
@@ -217,7 +224,7 @@ class FlatSchedule:
     arrival counters (zero between launches; grown by the wrapper for
     larger batches).  ``slots`` and ``epoch`` are the gated launch's
     per-(layer, tile, row chunk) live-row counts, each tagged with the
-    launch that wrote it.
+    launch that wrote it.  ``lock`` guards all three across threads.
 
     ``segments[k] = (start, end)`` delimits layer ``k``'s steps; the ``torch``
     lowering consumes exactly these flat arrays one segment at a time, so all
@@ -254,6 +261,12 @@ class FlatSchedule:
     # changes) and its launch count
     slots: Optional[torch.Tensor] = None
     epoch: int = 0
+    # held by the wrapper around the (re)allocation of ``arrivals`` and
+    # ``slots``, the epoch bump and the launch; every launch goes to
+    # ``stream``, the CUDA stream of the first
+    lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+    stream: Optional[int] = None
 
     @property
     def nnz(self) -> int:

@@ -1,9 +1,11 @@
 """The port's copied modules and its import boundary.
 
-``repro_torch.core`` and ``repro_torch.obs.{trace,series,telemetry}`` are
-verbatim copies of the reference's modules, so the Theorem-1 order, Connection
-Reordering at a given seed, ``simulate`` and ``theorem1_bounds`` agree by
-construction; the port imports neither ``jax`` nor anything of ``repro``.
+``repro_torch.core``, ``repro_torch.obs.{trace,series,telemetry,prom}`` and
+``repro_torch.serving.{resilience,http}`` are verbatim copies of the
+reference's modules, so the Theorem-1 order, Connection Reordering at a
+given seed, ``simulate``, ``theorem1_bounds``, the resilience machinery, the
+front door and the Prometheus exposition agree by construction; the port
+imports neither ``jax`` nor ``ml_dtypes`` nor anything of ``repro``.
 """
 
 import os
@@ -22,7 +24,8 @@ ROOT = Path(__file__).resolve().parents[1]
 COPIES = [f"core/{name}" for name in (
     "__init__.py", "graph.py", "iosim.py", "_iosim_c.py", "bounds.py",
     "reorder.py", "blocksparse.py", "compact_growth.py")] + [
-    "obs/trace.py", "obs/series.py", "obs/telemetry.py"]
+    "obs/trace.py", "obs/series.py", "obs/telemetry.py", "obs/prom.py",
+    "serving/resilience.py", "serving/http.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -39,7 +42,8 @@ def test_import_leaves_out_jax_and_repro():
         "import importlib.util, sys\n"
         "import repro_torch, repro_torch.launch.serve, repro_torch.kernels\n"
         "import repro_torch.kernels._build, repro_torch.kernels.moe_ffn\n"
-        "import repro_torch.obs\n"
+        "import repro_torch.obs, repro_torch.checkpoint\n"
+        "import repro_torch.serving, repro_torch.serving.plancache\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', "
         f"{str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

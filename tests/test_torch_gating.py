@@ -265,7 +265,8 @@ def test_fresh_forward_keeps_gating_and_safe_twin_drops_it(make_stack):
     assert torch.equal(fresh(x), plan(x))
     assert fresh.measure_dynamic(x) == plan.measure_dynamic(x)
     twin = plan.safe_twin()
-    assert (twin.backend, twin.gate, twin._measure) == ("torch", False, None)
+    assert (twin.backend, twin.gate, twin._measure, twin.fused) == (
+        "kernel", False, None, False)
     np.testing.assert_allclose(out(twin(x)), out(plan(x)), **TOL["f32"])
 
 

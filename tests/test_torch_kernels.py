@@ -14,6 +14,8 @@ Tests that need the card are marked ``cuda`` and skip without one.
 """
 
 import dataclasses
+import sys
+import threading
 from types import SimpleNamespace
 
 import jax
@@ -398,6 +400,84 @@ def test_wrapper_rejects_non_cuda_non_cpu_tensor(make_stack):
     x = torch.zeros((2, 64), device="meta")
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         K.bsr_matmul(x, sch, torch.from_numpy(tl.bias))
+
+
+class FakeLib:
+    """Stands in for the built library: records each megakernel launch's
+    epoch (its fourth argument from the end) and succeeds."""
+
+    def __init__(self):
+        self.epochs = []
+        self._mu = threading.Lock()
+
+    def bsr_megakernel_launch(self, *args):
+        with self._mu:
+            self.epochs.append(args[-4])
+        return 0
+
+    def bsr_matmul_launch(self, *args):
+        return 0
+
+
+def test_launch_bookkeeping_is_exact_under_threads(make_stack, monkeypatch):
+    """16 threads launch one schedule's kernels through the wrappers'
+    bookkeeping (a fake library stands in for the card): every gated
+    launch draws its own epoch, never 0, and every count is exact."""
+    tls = layers_from_numpy(make_stack(sizes=(64, 128, 64), block=32))
+    schs = [tops.compile_schedule(l, np.lexsort((l.rows, l.cols)))
+            for l in tls]
+    flat = tops.compile_flat_schedule(tls, schs)
+    lib = FakeLib()
+    monkeypatch.setattr(K._build, "load", lambda: lib)
+    monkeypatch.setattr(K, "_stream", lambda: 0)
+    x = torch.zeros((5, 64))
+    occ0 = torch.zeros(2, dtype=torch.int32)
+    bias = torch.from_numpy(tls[0].bias)
+    threads_n, per_thread = 16, 25
+
+    def work():
+        for _ in range(per_thread):
+            occ = torch.empty((1, flat.hidden_tiles), dtype=torch.int32)
+            K._launch_megakernel(x, flat, 0, 0, occ0, occ,
+                                 torch.empty((5, 64)))
+            K._launch_megakernel(x, flat, 0, 0, None, None,
+                                 torch.empty((5, 64)))
+            K._launch_matmul(x, schs[0], bias, 0, torch.empty((5, 128)))
+
+    K.reset_launches()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(threads_n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    n = threads_n * per_thread
+    gated = sorted(e for e in lib.epochs if e)
+    assert gated == list(range(1, n + 1))       # distinct tags, never 0
+    assert lib.epochs.count(0) == n             # the ungated launches
+    assert (K.bsr_megakernel.gated_launches, K.bsr_megakernel.launches,
+            K.bsr_matmul.launches) == (n, n, n)
+    flat.epoch = 0xFFFFFFFF                     # the tag wraps past 0
+    assert K.next_epoch(flat) == 1
+    K.reset_launches()
+
+
+def test_schedule_launches_stay_on_one_stream(make_stack, monkeypatch):
+    tl = layers_from_numpy(make_stack(sizes=(64, 64), block=32))[0]
+    sch = tops.compile_schedule(tl, np.lexsort((tl.rows, tl.cols)))
+    monkeypatch.setattr(K._build, "load", lambda: FakeLib())
+    x, bias = torch.zeros((2, 64)), torch.from_numpy(tl.bias)
+    monkeypatch.setattr(K, "_stream", lambda: 7)
+    K._launch_matmul(x, sch, bias, 0, torch.empty((2, 64)))
+    monkeypatch.setattr(K, "_stream", lambda: 8)
+    with pytest.raises(RuntimeError, match="stream 0x8"):
+        K._launch_matmul(x, sch, bias, 0, torch.empty((2, 64)))
+    K.reset_launches()
 
 
 @pytest.fixture

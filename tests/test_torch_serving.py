@@ -156,3 +156,49 @@ def test_serve_entry_point_on_cpu(capsys):
     want = report.server.plans.base.safe_twin()(x).numpy()
     got = np.stack([report.outputs[r] for r in rids])
     np.testing.assert_allclose(got, want, **TOL)
+
+
+CLI_CASES = {
+    "pipeline-router": ["--async", "--workers", "2", "--models", "2",
+                        "--gate"],
+    "http-resilience": ["--http-port", "0", "--http-clients", "3",
+                        "--workers", "2", "--metrics-port", "0", "--breaker",
+                        "2", "--breaker-cooldown-ms", "100", "--retries", "1",
+                        "--batch-timeout-ms", "5000"],
+    "safe-mode": ["--safe-mode", "--backend", "torch", "--slo-ms", "20",
+                  "--max-queue", "64"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_CASES))
+def test_serve_runtime_flags_on_cpu(case, tmp_path, capsys):
+    """The serving runtime's flags end to end on the CPU: every request is
+    answered, and each answer equals its model's safe twin."""
+    argv = ["--sparse-ffnn", "--device", "cpu", "--ffnn-sizes", "128", "256",
+            "128", "--block", "32", "--requests", "16", "--reorder-iters",
+            "20", "--plan-store", str(tmp_path / "plans"), "--trace-out",
+            str(tmp_path / "trace.json")] + CLI_CASES[case]
+    report = serve.serve_sparse_ffnn(serve.parse_args(argv))
+    out = capsys.readouterr().out
+    assert "plan-store hit" not in out and "trace: " in out
+    assert len(report.outputs) == 16
+    assert all(y is not None for y in report.outputs.values())
+    runtime = report.server
+    for key, x in report.inputs.items():
+        plans = runtime.servers[key[0]].plans if case == "pipeline-router" \
+            else runtime.plans
+        want = plans.base.plain()(x[None]).numpy()[0]
+        np.testing.assert_allclose(report.outputs[key], want, **TOL)
+    if case == "pipeline-router":
+        assert "served 16 requests across 2 models (16 collected)" in out
+        assert "executor pool: 2 workers" in out
+    elif case == "http-resilience":
+        assert report.http_codes == {200: 16}
+        assert "metrics scrape:" in out and "repro_served 16" in out
+        assert "resilience: retries=0" in out and "[+safe twin]" in out
+        assert "degraded batches=0" in out
+    else:
+        assert "safe mode:" in out and "[SAFE MODE]" in out
+    # a second run warm-starts from the store
+    serve.serve_sparse_ffnn(serve.parse_args(argv + ["--requests", "2"]))
+    assert "plan-store hit" in capsys.readouterr().out
