@@ -64,7 +64,22 @@ Phases, each of which must pass (any failure exits non-zero):
      cool-down launches the gated megakernel again); POSTs to the HTTP
      front door and a GET of the Prometheus endpoint; and the serving rate
      for ``--workers 0``, ``1`` and ``4`` over timed windows of a few
-     seconds each, and the card's busy share of a profiled window.
+     seconds each, and the card's busy share of a profiled window;
+  8. sharded plans at the same widths: ``Mesh(2, 1)``, ``Mesh(4, 1)`` and
+     ``Mesh(4, 2)`` on the kernel backend, f32 and bf16 x, B in {1, 4, 33}:
+     each forward exactly model x layers ``bsr_matmul`` launches and no
+     megakernel, answers within tolerance of ``plan.plain()``, every shard
+     schedule's arrival counters zero after each forward, and the rows of a
+     batch padded to the data axis bit-equal to those of an unpadded one;
+     ``Mesh(1, 1)`` one megakernel launch per forward, bit-equal to the
+     unsharded plan; ``serve --mesh 4x1`` step-driven (64 requests, model x
+     layers launches per forward); ``--mesh 4x2 --gate --async --workers 2``
+     through a temporary ``--plan-store``, cold then warm (0 annealer
+     iterations in every shard, outputs bit-equal); device time per forward
+     (torch.profiler) and per-call time of ``Mesh(2, 1)`` and ``Mesh(4, 1)``
+     beside the unsharded megakernel and ``--no-fuse``; and ``Mesh(2, 1)``
+     as two processes on the one card through ``gloo`` all-gathers, where
+     this torch's gloo takes CUDA tensors (else it says so).
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the ``kernels``
@@ -116,6 +131,10 @@ RATE_WORKERS = (0, 1, 4)
 # least seconds of one timed window, and of the profiled one
 RATE_CHUNK, RATE_WINDOW_S, PROFILED_WINDOW_S = 512, 3.0, 1.0
 WAIT_S = 120.0
+# phase 8: the sharded meshes on the kernel route, their batches, and the
+# deadline of the two-process gloo run
+SHARD_MESHES, SHARD_BATCHES = ((2, 1), (4, 1), (4, 2)), (1, 4, 33)
+GLOO_TIMEOUT_S = 300.0
 # H100 SXM data-sheet peaks: HBM bytes/s, f32 FMA operations/s outside the
 # tensor cores (the kernels' arithmetic) and bf16 tensor-core operations/s.
 HBM_BPS = 3.35e12
@@ -180,28 +199,32 @@ def device_ms(fn, runs=30, warm=5, tries=5):
     """Device time per call (ms): the summed duration of the GPU activities
     (kernels, copies) that ``runs`` calls put on the card, from a
     torch.profiler trace, over ``runs``.  Host time between launches is not
-    in it.  A trace now and then holds another trace's device activity and
-    misses its own, so only activity that starts after the trace's first
-    host event counts, and a trace whose activity is not a whole number per
-    call is taken again, up to ``tries`` times.  None when no trace shows
-    device activity."""
+    in it.  Once other traces or processes have used the card, a trace
+    misses its first few kernels, so the ``warm`` calls run inside the
+    trace and only activity that starts within a marked range after them
+    counts (not the range's own device-side annotation); a trace whose
+    activity is not a whole number per call is taken again, up to
+    ``tries`` times.  None when no trace shows it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
+    mark = "chip_smoke.timed"
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
+            for _ in range(warm):
                 fn()
             torch.cuda.synchronize()
+            with record_function(mark):
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
         events = prof.events()
-        t0 = min((e.time_range.start for e in events
-                  if e.device_type == DeviceType.CPU), default=None)
+        t0 = min((e.time_range.start for e in events if e.name == mark
+                  and e.device_type == DeviceType.CPU), default=None)
         dev = [e for e in events if e.device_type == DeviceType.CUDA
-               and (t0 is None or e.time_range.start >= t0)]
+               and e.name != mark and t0 is not None
+               and e.time_range.start >= t0]
         if dev and len(dev) % runs == 0:
             return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / runs
     return None
@@ -854,15 +877,21 @@ def phase_times(plans, rng):
     return entries
 
 
-def kernel_line(entries, launches, main_err):
-    """The ``kernels`` JSON rows, one per kernel, from its timing row."""
-    return [{
+def kernel_line(entries, launches, main_err, sharded_launches):
+    """The ``kernels`` JSON rows, one per kernel, from its timing row;
+    ``bsr_matmul``'s also carries its launches on the sharded main path
+    (``serve --mesh 4x1``)."""
+    rows = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": TPU_KERNELS[name], "launches": launches[name],
         "max_abs_err": main_err[name], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
     } for name, row in entries.items()]
+    for row in rows:
+        if row["name"] == "bsr_matmul":
+            row["sharded_launches"] = sharded_launches
+    return rows
 
 
 def phase_trace(server, args):
@@ -1368,6 +1397,320 @@ def phase_runtime():
     print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: sharded plans
+# --------------------------------------------------------------------------- #
+
+def launch_counts(K):
+    """(bsr_matmul launches, megakernel launches of both instances)."""
+    return (K.bsr_matmul.launches,
+            K.bsr_megakernel.launches + K.bsr_megakernel.gated_launches)
+
+
+def shard_counters_zero(plan):
+    return all(not s.arrivals.any() for p in plan.shards
+               for s in p.schedules)
+
+
+def sharded_engine(Engine, **kw):
+    return Engine(activation="gelu", reorder=True,
+                  reorder_iters=REORDER_ITERS, device="cuda", **kw)
+
+
+def phase_sharded_kernels(layers, rng, Engine, Mesh, unsharded):
+    """Each mesh on the kernel route against its plain version; Mesh(1, 1)
+    against the unsharded plan.  Returns the plans by mesh."""
+    from repro_torch.kernels import bsr_matmul as K
+
+    x_all = torch.from_numpy(rng.standard_normal(
+        (34, SIZES[0])).astype(np.float32)).cuda()
+    plans, worst, n = {}, {}, 0
+    for mesh in SHARD_MESHES:
+        plan = sharded_engine(Engine).compile(layers, mesh=Mesh(*mesh))
+        check(plan.route == "bsr_matmul-per-shard",
+              f"Mesh{mesh}: route {plan.route}")
+        check(all(p.flat.blocks.device.type == "cpu" for p in plan.shards),
+              f"Mesh{mesh}: a shard's flat schedule is on the card")
+        plain = plan.plain()
+        per_fwd = mesh[0] * plan.n_layers
+        for xdt in (torch.float32, torch.bfloat16):
+            xx = x_all.to(xdt)
+            for B in SHARD_BATCHES:
+                before = launch_counts(K)
+                y = plan(xx[:B])
+                torch.cuda.synchronize()
+                after = launch_counts(K)
+                check(after[0] - before[0] == per_fwd and after[1] == before[1],
+                      f"Mesh{mesh} B={B}: {after[0] - before[0]} bsr_matmul "
+                      f"and {after[1] - before[1]} megakernel launches, "
+                      f"expected {per_fwd} and 0")
+                check(shard_counters_zero(plan),
+                      f"Mesh{mesh} B={B}: arrival counters not zero")
+                check(y.shape == (B, SIZES[-1]) and y.dtype == xdt
+                      and bool(torch.isfinite(y).all()),
+                      f"Mesh{mesh} B={B}: output not finite [{B}, 1024]")
+                err, abs_err = rel_err(y, plain(xx[:B]))
+                check(err < TOL[xdt], f"Mesh{mesh} x {xdt} B={B}: error "
+                      f"{err:.3e} >= {TOL[xdt]}")
+                worst[xdt] = max(worst.get(xdt, (0.0, 0.0)), (err, abs_err))
+                n += 1
+            # a batch padded to the data axis (B = 3 and 33 under data 2)
+            y_full = plan(xx)
+            for B in (3, 33):
+                check(torch.equal(plan(xx[:B]), y_full[:B]),
+                      f"Mesh{mesh} x {xdt}: rows of a {B}-row batch not "
+                      "bit-equal to those of the 34-row batch")
+        plans[mesh] = plan
+        print(f"sharded Mesh{mesh}: {plan.describe()}")
+    unit = sharded_engine(Engine).compile(layers, mesh=Mesh(1, 1))
+    check(unit._forward is unit.shards[0]._forward,
+          "Mesh(1, 1) does not share the unsharded forward")
+    x = x_all[:MAIN_B]
+    before = launch_counts(K)
+    y = unit(x)
+    torch.cuda.synchronize()
+    after = launch_counts(K)
+    check((after[0] - before[0], after[1] - before[1]) == (0, 1),
+          "Mesh(1, 1) did not launch the megakernel once per forward")
+    check(torch.equal(y, unsharded(x)),
+          "Mesh(1, 1) is not bit-equal to the unsharded plan")
+    print(f"sharded kernel route vs plain: {n} comparisons passed (meshes "
+          f"{list(SHARD_MESHES)}, x f32/bf16, B in {SHARD_BATCHES}), model x "
+          f"layers bsr_matmul launches and no megakernel per forward, "
+          f"counters zero, padded rows bit-equal; worst relative/abs error "
+          + ", ".join(f"{str(k).split('.')[-1]} {e:.3e}/{a:.3e}"
+                      for k, (e, a) in worst.items())
+          + "; Mesh(1, 1): one megakernel launch, bit-equal to the "
+          "unsharded plan")
+    return plans
+
+
+def phase_sharded_serve():
+    """``serve --sparse-ffnn --mesh 4x1``, step-driven: the sharded main
+    path.  Returns its bsr_matmul launches."""
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(["--sparse-ffnn", "--ffnn-sizes",
+                             *map(str, SIZES), "--density", str(DENSITY),
+                             "--block", str(BLOCK), "--batch", str(MAIN_B),
+                             "--requests", "64", "--reorder-iters",
+                             str(REORDER_ITERS), "--mesh", "4x1"])
+    plans, server = serve.build_server(args)
+    K.reset_launches()
+    report = serve.drive(server, args)
+    torch.cuda.synchronize()
+    launches = {"bsr_matmul": K.bsr_matmul.launches,
+                "bsr_megakernel": K.bsr_megakernel.launches,
+                "bsr_megakernel_gated": K.bsr_megakernel.gated_launches}
+    per_fwd = 4 * plans.base.n_layers
+    print(f"main path --mesh 4x1: {server.metrics.summary()}; "
+          f"{report.forwards} forwards, launches {launches}")
+    check(len(report.inputs) == 64 and all(
+        y is not None for y in report.outputs.values()),
+          "--mesh 4x1: a request went unanswered")
+    check(launches == {"bsr_matmul": per_fwd * report.forwards,
+                       "bsr_megakernel": 0, "bsr_megakernel_gated": 0}
+          and report.forwards > 0,
+          f"--mesh 4x1: launches {launches}, expected {per_fwd} bsr_matmul "
+          "per forward and no megakernel")
+    rids = sorted(report.inputs)
+    x = torch.from_numpy(np.stack([report.inputs[r] for r in rids])).cuda()
+    y = torch.from_numpy(np.stack([report.outputs[r] for r in rids]))
+    err, _ = rel_err(y, plans.base.plain()(x).cpu())
+    check(y.shape == (64, SIZES[-1]) and bool(torch.isfinite(y).all())
+          and err < TOL[torch.float32],
+          f"--mesh 4x1 answers vs plain version: error {err:.3e}")
+    print(f"main path --mesh 4x1 answers vs plain (torch-backend) version: "
+          f"error {err:.3e}")
+    return launches["bsr_matmul"]
+
+
+def phase_sharded_runtime(rng):
+    """``--mesh 4x2 --gate --async --workers 2`` through a temporary plan
+    store: cold, then warm (0 annealer iterations per shard, outputs
+    bit-equal), then 64 requests through the warm server."""
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.launch import serve
+
+    with tempfile.TemporaryDirectory(prefix="plan_store_") as store:
+        args = runtime_args(store, "--mesh", "4x2", "--async", "--workers",
+                            "2", "--requests", "64")
+        cold, _ = serve.build_server(args)
+        warm, server = serve.build_server(args)
+    iters = ([s.annealer_iters for s in cold.base.shards],
+             [s.annealer_iters for s in warm.base.shards])
+    check(not cold.cache_hit and iters[0] == [REORDER_ITERS] * 4,
+          f"--mesh 4x2 first build: hit={cold.cache_hit}, iters {iters[0]}")
+    check(warm.cache_hit and iters[1] == [0] * 4,
+          f"--mesh 4x2 second build: hit={warm.cache_hit}, iters {iters[1]}")
+    x = torch.from_numpy(mixed_rows(rng, RUNTIME_B - 1)).cuda()
+    check(torch.equal(cold.base(x), warm.base(x)),
+          "--mesh 4x2: the warm plan's outputs are not bit-equal to the cold")
+    server.start()
+    K.reset_launches()
+    try:
+        report = serve.drive(server, args)
+    finally:
+        check(server.shutdown(drain=True, drain_timeout_s=WAIT_S),
+              "--mesh 4x2: the pipeline did not shut down")
+    torch.cuda.synchronize()
+    launches = launch_counts(K)
+    snap = server.snapshot()
+    print(f"--mesh 4x2 --gate --async --workers 2: plan store cold "
+          f"{cold.compile_s:.3f} s ({sum(iters[0])} annealer iters over 4 "
+          f"shards), warm {warm.compile_s:.3f} s (0 iters), outputs "
+          f"bit-equal; {server.metrics.summary()}; {report.forwards} "
+          f"forwards, bsr_matmul/megakernel launches {launches}; "
+          f"{warm.base.describe()}")
+    check(len(report.inputs) == 64 and all(
+        y is not None for y in report.outputs.values())
+          and snap["batch_failures"] == 0,
+          "--mesh 4x2: a request went unanswered")
+    check(launches == (8 * report.forwards, 0),
+          f"--mesh 4x2: launches {launches} for {report.forwards} forwards")
+    check(snap["io"]["batches_measured"] == 0
+          and snap["io_measure_failed"] == 0,
+          "--mesh 4x2: the dynamic-I/O sampler ran on a sharded plan")
+    keys = sorted(report.inputs)
+    err = twin_err(warm, [report.inputs[k] for k in keys],
+                   [report.outputs[k] for k in keys])
+    check(err < TOL[torch.float32], f"--mesh 4x2 answers vs plain: {err:.3e}")
+
+
+def phase_sharded_times(layers, shard_plans, unsharded, Engine):
+    """Device time per forward and per-call time of the sharded loop beside
+    the unsharded megakernel and --no-fuse, f32 x, B = 4."""
+    from repro_torch.kernels import bsr_matmul as K
+
+    layered = Engine(activation="gelu", reorder=True,
+                     reorder_iters=REORDER_ITERS, fuse=False,
+                     device="cuda").compile(layers)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (MAIN_B, SIZES[0])).astype(np.float32)).cuda()
+    nnz = sum(l.nnz_blocks for l in layers)
+    act_bytes = 4 * (x.numel() + MAIN_B * SIZES[-1])
+    b_ms, b_by = bound_ms(act_bytes + nnz * BLOCK * BLOCK * 4,
+                          2 * MAIN_B * BLOCK * BLOCK * nnz)
+    rows = []
+    for name, plan in (("Mesh(2, 1)", shard_plans[(2, 1)]),
+                       ("Mesh(4, 1)", shard_plans[(4, 1)]),
+                       ("unsharded megakernel", unsharded),
+                       ("--no-fuse", layered)):
+        before = launch_counts(K)
+        plan(x)
+        torch.cuda.synchronize()
+        after = launch_counts(K)
+        row = {"forward": name, "bsr_matmul_launches": after[0] - before[0],
+               "megakernel_launches": after[1] - before[1],
+               "ms": device_ms(lambda: plan(x)),
+               "call_ms": median_ms(lambda: plan(x)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        print("time: " + json.dumps(row))
+    return rows
+
+
+GLOO_RANK = """
+import json, sys
+import numpy as np, torch
+import torch.distributed as dist
+rank, tmp, src = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sizes, density, block, iters = json.loads(sys.argv[4])
+sys.path.insert(0, src)
+dist.init_process_group("gloo", store=dist.FileStore(tmp + "/store", 2),
+                        rank=rank, world_size=2)
+out = {"rank": rank}
+try:
+    probe = torch.full((4,), float(rank), device="cuda")
+    parts = [torch.empty_like(probe) for _ in range(2)]
+    dist.all_gather(parts, probe)
+    torch.cuda.synchronize()
+    out["gloo_cuda"] = [float(p[0]) for p in parts] == [0.0, 1.0]
+except (RuntimeError, ValueError) as e:
+    out["gloo_cuda"], out["error"] = False, str(e)[:300]
+if out["gloo_cuda"]:
+    from repro_torch.engine import Engine, Mesh
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.launch.serve import make_ffnn_layers
+    plan = Engine(activation="gelu", reorder=True, reorder_iters=iters,
+                  device="cuda").compile(make_ffnn_layers(sizes, density,
+                                                          block),
+                                         mesh=Mesh(2, 1))
+    coll = plan.with_process_group(dist.group.WORLD)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (33, sizes[0])).astype(np.float32)).cuda()
+    y_loop = plan(x)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    y = coll(x)
+    torch.cuda.synchronize()
+    out["launches"] = K.bsr_matmul.launches
+    out["bit_equal"] = bool(torch.equal(y, y_loop))
+    out["route"] = coll.route
+dist.destroy_process_group()
+print("RESULT " + json.dumps(out))
+"""
+
+
+def phase_sharded_collective():
+    """Mesh(2, 1) as two processes on the one card: each launches its
+    shard's bsr_matmul per layer and all-gathers through gloo; the answer
+    must be bit-equal to the sequential loop's.  Returns whether this
+    torch's gloo all-gathers CUDA tensors."""
+    with tempfile.TemporaryDirectory(prefix="gloo_") as tmp:
+        cfg = json.dumps([SIZES, DENSITY, BLOCK, REORDER_ITERS])
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", GLOO_RANK, str(r), tmp,
+             str(ROOT / "src"), cfg], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        deadline = time.monotonic() + GLOO_TIMEOUT_S
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"the two-process gloo run did not end "
+                               f"within {GLOO_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          "the two-process gloo run failed:\n" + "\n".join(logs)[-2000:])
+    results = [json.loads(next(ln for ln in log.splitlines()
+                               if ln.startswith("RESULT "))[7:])
+               for log in logs]
+    if not all(r["gloo_cuda"] for r in results):
+        print("sharded collective: this torch's gloo does not all-gather "
+              f"CUDA tensors ({results[0].get('error', '')}); the "
+              "two-process Mesh(2, 1) run is not possible here")
+        return False
+    print("sharded collective Mesh(2, 1), two processes on one card: "
+          + json.dumps(results))
+    check(all(r["bit_equal"] and r["launches"] == len(SIZES) - 1
+              for r in results),
+          "the gloo collective is not bit-equal to the loop, or a rank did "
+          "not launch bsr_matmul once per layer")
+    return True
+
+
+def phase_sharded(layers, rng, Engine, unsharded):
+    """Phase 8: sharded plans on the card."""
+    from repro_torch.engine import Mesh
+
+    t0 = time.perf_counter()
+    shard_plans = phase_sharded_kernels(layers, rng, Engine, Mesh, unsharded)
+    launches = phase_sharded_serve()
+    phase_sharded_runtime(rng)
+    phase_sharded_times(layers, shard_plans, unsharded, Engine)
+    phase_sharded_collective()
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1399,7 +1742,8 @@ def main() -> int:
         launches["moe_ffn"], main_err["moe_ffn"], entries["moe_ffn"] = \
             phase_moe()
         phase_runtime()
-        kernels = kernel_line(entries, launches, main_err)
+        sharded_launches = phase_sharded(layers, rng, Engine, plans["f32"])
+        kernels = kernel_line(entries, launches, main_err, sharded_launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -21,10 +21,15 @@ callable epilogue is accepted on the ``torch`` backend only.
 holds no nonzero for any batch row contributes nothing, so the gated
 megakernel (``kernel``) skips it and the ``torch`` lowering masks its
 gather; both stay bit-identical to the ungated forward.
+
+``make_sharded_forward`` lowers a sharded plan (``engine.sharding``): per
+layer one ``bsr_matmul`` launch per model shard on ``kernel``, the segment
+lowering on ``torch``, as a loop on one device or one shard per process.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, List, Optional, Sequence
 
@@ -302,3 +307,135 @@ def make_fused_measure(
         return y, occs
 
     return measure
+
+
+# --------------------------------------------------------------------------- #
+# sharded dispatch: per-shard layers + the activation's reassembly
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass
+class ShardedSegment:
+    """One layer of a sharded plan: every model shard's compiled schedule
+    and bias, and ``owned[s]`` (int64 [tps]), the layer's output tiles
+    shard ``s`` computes, in its local order.
+
+    The reference stacks the shards' schedules, padded with sink steps to
+    one length, because ``shard_map`` needs equal shapes; the shard loop
+    and the per-process lowering walk each shard's own schedule and need
+    none of that.
+    """
+
+    schedules: List[CompiledSchedule]   # [model]
+    biases: List[torch.Tensor]          # [model] f32 [tps * bn]
+    owned: torch.Tensor                 # int64 [model, tps]
+    grid_in: int                        # full input grid of this layer
+    grid_out: int                       # full output grid of this layer
+    block_m: int
+    block_n: int
+    activation: Activation
+
+    @property
+    def tps(self) -> int:
+        """Output tiles per shard."""
+        return int(self.owned.shape[1])
+
+
+def _shard_layer(h: torch.Tensor, seg: ShardedSegment, s: int, backend: str,
+                 occ: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shard ``s``'s owned tiles of one layer from the full activation
+    ``h``: one ``bsr_matmul`` launch on ``kernel``, the segment lowering on
+    ``torch``."""
+    sch = seg.schedules[s]
+    if backend == "torch":
+        return _torch_segment(h, sch.rows, sch.cols, sch.blocks,
+                              seg.biases[s], seg.block_m, seg.block_n,
+                              seg.grid_in, seg.tps, seg.activation, occ=occ,
+                              scales=sch.scales)
+    return bsr_matmul(h, sch, seg.biases[s], seg.activation)
+
+
+def _place(out: torch.Tensor, y: torch.Tensor, seg: ShardedSegment,
+           s: int) -> None:
+    """Write shard ``s``'s [B, tps * bn] output into its owned tiles of
+    ``out`` ([B, grid_out, bn]): data movement only, so bit-exact."""
+    out.index_copy_(1, seg.owned[s],
+                    y.reshape(y.shape[0], seg.tps, seg.block_n))
+
+
+def make_sharded_forward(
+    segments: Sequence[ShardedSegment],
+    backend: str,
+    data: int = 1,
+    gate: bool = False,
+    base_forward: Optional[Callable] = None,
+    process_mesh=None,
+) -> Callable:
+    """Sharded forward over a model x data mesh: x [B, n_in] -> [B, n_out].
+
+    Per layer, each model shard computes its owned output tiles from the
+    full previous activation, and the tiles are put back in canonical order
+    for the next layer.  ``segments`` empty means a one-shard model axis:
+    the body is ``base_forward``, the unsharded plan's own.
+
+    Without ``process_mesh`` the shards run one after another on this
+    device (on ``kernel``, ``model x layers`` ``bsr_matmul`` launches, all
+    on the current stream).  With one (a ``sharding.ProcessMesh``) this
+    process runs its own shard on its data rows, ``torch.distributed``
+    all-gathers each layer's shard outputs over the model axis and the
+    answers over the data axis; ``B`` must then be a multiple of ``data``
+    (the plan pads).
+
+    With ``gate`` (``torch`` only) the forward takes ``(x, valid)``:
+    ``valid`` ([B] bool) marks the real batch rows, and each layer's
+    occupancy, counted once over them, masks every shard's gather.
+    """
+    segments = list(segments)
+    if not segments and base_forward is None:
+        raise ValueError("a one-shard mesh needs the unsharded forward")
+    model = len(segments[0].schedules) if segments else 1
+
+    def forward_loop(x, valid=None):
+        h = x
+        for seg in segments:
+            occ = tile_occupancy(h, seg.block_m, seg.grid_in, valid=valid) \
+                if gate else None
+            out = torch.empty((h.shape[0], seg.grid_out, seg.block_n),
+                              dtype=h.dtype, device=h.device)
+            for s in range(model):
+                _place(out, _shard_layer(h, seg, s, backend, occ), seg, s)
+            h = out.reshape(h.shape[0], -1)
+        return h
+
+    if process_mesh is None:
+        return forward_loop if segments else base_forward
+
+    import torch.distributed as dist
+
+    pm = process_mesh
+
+    def gather(t: torch.Tensor, n: int, group) -> List[torch.Tensor]:
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return parts
+
+    def forward_collective(x, valid=None):
+        rows = x.shape[0] // data
+        lo = pm.data_index * rows
+        h = x[lo:lo + rows]
+        v = None if valid is None else valid[lo:lo + rows]
+        if not segments:
+            h = base_forward(h)
+        for seg in segments:
+            occ = tile_occupancy(h, seg.block_m, seg.grid_in, valid=v) \
+                if gate else None
+            y = _shard_layer(h, seg, pm.model_index, backend, occ)
+            out = torch.empty((h.shape[0], seg.grid_out, seg.block_n),
+                              dtype=h.dtype, device=h.device)
+            for s, ys in enumerate(gather(y, model, pm.model_group)):
+                _place(out, ys, seg, s)
+            h = out.reshape(h.shape[0], -1)
+        if data > 1:
+            h = torch.cat(gather(h, data, pm.data_group))
+        return h
+
+    return forward_collective

@@ -5,6 +5,8 @@
     y = plan(x)                              # online: one megakernel launch
     print(plan.io.summary())                 # predicted I/O vs Theorem-1 bounds
 
+    sharded = engine.compile(layers, mesh=Mesh(model=4, data=2))
+
 ``compile`` builds the block DAG of all layers, takes the Theorem-1
 (grouped-by-output) order, optionally improves it with Connection Reordering
 over the entire DAG, re-groups the result into the kernel-compatible family,
@@ -13,7 +15,8 @@ device, and lowers everything into one forward for the chosen backend.  The
 offline steps are the reference's own code (``core`` is a verbatim copy),
 so orders, schedule arrays and I/O reports equal the JAX package's.  Plans
 are cached: compiling the same layers with the same settings returns the
-same plan object.
+same plan object.  With a ``mesh`` the net is partitioned into one plan
+per model shard (``engine.sharding``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from .backends import (
     resolve_backend,
 )
 from .plan import ExecutionPlan, IOReport
+from .sharding import Mesh, ShardedExecutionPlan, build_sharded_plan
 
 #: accepted epilogue names -> the kernels' canonical name ("none" = linear)
 ACTIVATIONS: Dict[Optional[str], str] = {
@@ -121,7 +125,7 @@ class Engine:
     device: Union[str, torch.device] = "cuda"
     tracer: Optional[object] = dataclasses.field(default=None, repr=False,
                                                  compare=False)
-    _cache: Dict[Tuple, ExecutionPlan] = \
+    _cache: Dict[Tuple, Union[ExecutionPlan, ShardedExecutionPlan]] = \
         dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
@@ -144,14 +148,25 @@ class Engine:
         self,
         net: Union[BlockFFNN, Sequence[BSRLayer]],
         backend: Optional[str] = None,
-    ) -> ExecutionPlan:
-        """Lower a whole network into one cached plan."""
+        mesh: Optional[Mesh] = None,
+    ) -> Union[ExecutionPlan, ShardedExecutionPlan]:
+        """Lower a whole network into one cached plan.
+
+        Without ``mesh``: one whole-network :class:`ExecutionPlan`.  With
+        ``mesh=Mesh(model, data)`` the block DAG is partitioned over
+        ``model`` and the batch over ``data`` into a
+        :class:`ShardedExecutionPlan`, each shard built by the same
+        ``_build`` (Theorem-1 order + its own Connection Reordering);
+        ``Mesh(1, 1)`` shares the unsharded plan's forward outright.
+        """
         bffnn = net if isinstance(net, BlockFFNN) else to_block_ffnn(list(net))
         backend = resolve_backend(backend or self.backend)
-        key = self._plan_key(bffnn, backend)
+        key = self._plan_key(bffnn, backend) + self._mesh_key(mesh)
         plan = self._cache.get(key)
         if plan is None:
-            plan = self._cache[key] = self._build(bffnn, backend)
+            plan = self._build(bffnn, backend) if mesh is None \
+                else build_sharded_plan(self, bffnn, backend, mesh)
+            self._cache[key] = plan
         return plan
 
     def compile_with_order(
@@ -169,6 +184,27 @@ class Engine:
         bffnn = net if isinstance(net, BlockFFNN) else to_block_ffnn(list(net))
         backend = resolve_backend(backend or self.backend)
         return self._build(bffnn, backend, order=np.asarray(order), io=io)
+
+    def compile_sharded_with_orders(
+        self,
+        net: Union[BlockFFNN, Sequence[BSRLayer]],
+        mesh: Mesh,
+        orders: Sequence[np.ndarray],
+        backend: Optional[str] = None,
+        ios: Optional[Sequence[IOReport]] = None,
+    ) -> ShardedExecutionPlan:
+        """The sharded :meth:`compile_with_order`: a sharded plan rebuilt
+        from one stored connection order per shard — zero annealer
+        iterations, deterministic (the plan store's warm path)."""
+        bffnn = net if isinstance(net, BlockFFNN) else to_block_ffnn(list(net))
+        backend = resolve_backend(backend or self.backend)
+        return build_sharded_plan(self, bffnn, backend, mesh,
+                                  orders=list(orders), ios=ios)
+
+    @staticmethod
+    def _mesh_key(mesh: Optional[Mesh]) -> Tuple:
+        return ("mesh", None) if mesh is None \
+            else ("mesh", mesh.model, mesh.data)
 
     @staticmethod
     def _act_key(act):

@@ -13,8 +13,11 @@ Every forward is one ``bsr_megakernel`` launch; ``--no-fuse`` runs one
 tile-occupancy gating (each forward is one launch of the gated
 megakernel), samples the measured dynamic I/O of every batch into the
 server's ``IOTelemetry``, and prints the dynamic I/O report of one batch
-after serving.  ``--device cpu`` runs the kernels' plain versions on the
-CPU.
+after serving.  ``--mesh MODELxDATA`` serves a sharded plan instead: the
+net's output tiles split over MODEL shards, each with its own schedule, the
+batch padded to a multiple of DATA, one ``bsr_matmul`` launch per shard and
+layer in a loop on the one card.  ``--device cpu`` runs the kernels' plain
+versions on the CPU.
 
 The serving runtime is the reference's:
 
@@ -53,7 +56,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from ..core.blocksparse import BSRLayer
-from ..engine import Engine
+from ..engine import Engine, Mesh
 from ..obs import MetricsServer, Tracer
 from ..serving import (
     BucketedPlanSet,
@@ -124,23 +127,24 @@ def _resilience(args):
 
 
 def _settings(args):
-    """Engine, plan store and tracer of one run."""
+    """Engine, plan store, tracer and mesh of one run."""
     tracer = Tracer() if args.trace_out else None
     store = (PlanStore(args.plan_store, tracer=tracer)
              if args.plan_store else None)
-    return _engine(args, tracer), store, tracer
+    mesh = Mesh.parse(args.mesh) if args.mesh else None
+    return _engine(args, tracer), store, tracer, mesh
 
 
 def build_server(args) -> Tuple[BucketedPlanSet, SparseServer]:
     """Compile the net (or hit the plan store) into a warmed bucketed plan
     set and its server."""
-    engine, store, tracer = _settings(args)
+    engine, store, tracer, mesh = _settings(args)
     retry, breaker = _resilience(args)
     layers = make_ffnn_layers(args.ffnn_sizes, args.density, args.block)
     t0 = time.time()
     plans = BucketedPlanSet.compile(layers, engine=engine,
                                     max_batch=args.batch, plan_store=store,
-                                    safe_twin=breaker is not None)
+                                    mesh=mesh, safe_twin=breaker is not None)
     start = "warm (plan-store hit)" if plans.cache_hit else "cold"
     print(f"engine compile: {time.time() - t0:.1f}s [{start}] — "
           f"{plans.describe()}")
@@ -154,7 +158,7 @@ def build_server(args) -> Tuple[BucketedPlanSet, SparseServer]:
     # batch into the server's I/O telemetry
     server = SparseServer(
         plans, max_queue=args.max_queue, slo_ms=args.slo_ms, engine=engine,
-        plan_store=store, backend=args.backend, retry=retry,
+        plan_store=store, backend=args.backend, mesh=mesh, retry=retry,
         breaker=breaker() if breaker is not None else None, tracer=tracer,
         measure_dynamic_every=1 if args.gate else 0,
         executor_workers=args.workers)
@@ -167,14 +171,16 @@ def build_router(args) -> ModelRouter:
     if args.safe_mode:
         raise SystemExit("--safe-mode is single-model only; use --breaker "
                          "to degrade per model instead")
-    engine, store, tracer = _settings(args)
+    engine, store, tracer, mesh = _settings(args)
     retry, breaker = _resilience(args)
     nets = {f"m{k}": make_ffnn_layers(args.ffnn_sizes, args.density,
                                       args.block, seed=k)
             for k in range(args.models)}
     router = ModelRouter.compile(
         nets, engine=engine, max_batch=args.batch, plan_store=store,
-        backend=args.backend, breaker=breaker, max_queue=args.max_queue,
+        backend=args.backend,
+        meshes={name: mesh for name in nets} if mesh else None,
+        breaker=breaker, max_queue=args.max_queue,
         slo_ms=args.slo_ms, retry=retry, tracer=tracer,
         measure_dynamic_every=1 if args.gate else 0,
         executor_workers=args.workers)
@@ -398,7 +404,7 @@ def serve_sparse_ffnn(args) -> ServeReport:
         print(f"bucket calls: "
               f"{ {b: n for b, n in plans.bucket_calls.items() if n} }")
         base = plans.base
-        if args.gate and base._measure is not None:
+        if args.gate and getattr(base, "_measure", None) is not None:
             # measured dynamic I/O of one representative batch: how many
             # scheduled weight blocks a demand-driven stream actually read
             rng = np.random.default_rng(1)
@@ -445,6 +451,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "whose input tile is all-zero for the batch "
                          "(bit-exact; prints the measured dynamic I/O report "
                          "after serving)")
+    ap.add_argument("--mesh", default=None, metavar="MODELxDATA",
+                    help="serve through a sharded execution plan, e.g. 4x2 "
+                         "= 4 model shards x 2 data replicas, run as a loop "
+                         "over the shards on the one device (one bsr_matmul "
+                         "launch per shard and layer)")
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "kernel", "torch"),
                     help="kernel (= auto) runs the CUDA kernels; torch the "

@@ -1,12 +1,14 @@
 """Bucketed execution plans: variable batch sizes over one compiled schedule.
 
-Port of ``repro.serving.bucketing`` (sharded plans are not ported yet).  The
+Port of ``repro.serving.bucketing``.  The
 offline cost — block DAG, Theorem-1 order, Connection Reordering, schedule
 packing — is paid once by a single ``Engine.compile``, or not at all on a
 plan-store hit; each power-of-two batch bucket gets its own forward over the
 *same* schedule tensors, a batch of n rows runs through the smallest bucket
 >= n, and is padded only up to that bucket.  The kernels' work grows with
-the padded batch, so small buckets keep tail batches cheap.
+the padded batch, so small buckets keep tail batches cheap.  A sharded plan
+(``mesh=``) fans out the same way: ``with_fresh_forward`` hides the
+difference between the two plan kinds.
 
 The pipeline's hand-off unit, :class:`FormedBatch`, and its per-(server,
 bucket) dispatch lanes, :class:`DispatchQueues`, are the reference's own
@@ -26,8 +28,10 @@ import numpy as np
 import torch
 
 from ..core.blocksparse import BlockFFNN, BSRLayer
-from ..engine import Engine, ExecutionPlan
+from ..engine import Engine, ExecutionPlan, Mesh, ShardedExecutionPlan
 from ..obs.trace import NULL_TRACER
+
+AnyPlan = Union[ExecutionPlan, ShardedExecutionPlan]
 
 
 def bucket_sizes(max_batch: int) -> Tuple[int, ...]:
@@ -53,9 +57,9 @@ def _sync(device: torch.device) -> None:
 class BucketedPlanSet:
     """One compiled schedule, one forward per batch bucket."""
 
-    base: ExecutionPlan
+    base: AnyPlan
     buckets: Tuple[int, ...]
-    plans: Dict[int, ExecutionPlan]
+    plans: Dict[int, AnyPlan]
     cache_hit: bool = False           # True when the base plan came warm
     bucket_calls: Dict[int, int] = dataclasses.field(default_factory=dict)
     warmup_s: Dict[int, float] = dataclasses.field(default_factory=dict)
@@ -84,13 +88,17 @@ class BucketedPlanSet:
         plan_store=None,
         backend: Optional[str] = None,
         safe_twin: bool = False,
+        mesh: Optional[Mesh] = None,
     ) -> "BucketedPlanSet":
         """Compile the schedule once, then fan it out across batch buckets.
 
         ``plan_store`` (a :class:`repro_torch.serving.plancache.PlanStore`)
         makes the one expensive compile a content-addressed lookup: a hit
         rebuilds the plan from the stored connection order with zero
-        annealer iterations.  ``safe_twin=True`` also fans out the base
+        annealer iterations.  ``mesh`` compiles a
+        :class:`~repro_torch.engine.ShardedExecutionPlan` as the base
+        (one per-shard schedule each, the sequential shard loop).
+        ``safe_twin=True`` also fans out the base
         plan's safe-mode twin (per-layer dispatch, gate off, same backend:
         the same function through the simplest kernel route) into
         ``self.safe``, so a circuit
@@ -101,9 +109,10 @@ class BucketedPlanSet:
         tr = tracer if tracer is not None else NULL_TRACER
         t0 = time.perf_counter()
         if plan_store is not None:
-            base, hit = plan_store.get_or_compile(engine, net, backend)
+            base, hit = plan_store.get_or_compile(engine, net, backend,
+                                                  mesh=mesh)
         else:
-            base, hit = engine.compile(net, backend), False
+            base, hit = engine.compile(net, backend, mesh=mesh), False
         sizes = bucket_sizes(max_batch)
         with tr.span("bucket.fanout", buckets=len(sizes), cache_hit=hit):
             plans = {b: base.with_fresh_forward() for b in sizes}
@@ -116,7 +125,8 @@ class BucketedPlanSet:
 
     def build_safe_twin(self) -> "BucketedPlanSet":
         """This set's schedule fanned out through the plan's safe twin (per
-        layer, ungated, same backend — ``ExecutionPlan.safe_twin``): same
+        layer, ungated, same backend — ``ExecutionPlan.safe_twin``, or its
+        sharded counterpart): same
         buckets, same schedule tensors by reference, marked
         ``safe_mode`` so the server counts the batches it runs."""
         safe_base = self.base.safe_twin()

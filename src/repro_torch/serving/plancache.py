@@ -1,7 +1,6 @@
 """Persistent, content-addressed store for compiled execution plans.
 
-Port of ``repro.serving.plancache`` (single-device plans; the sharded
-branches come with the sharding slice).  The offline cost — Theorem-1
+Port of ``repro.serving.plancache``.  The offline cost — Theorem-1
 scheduling plus Connection Reordering — is paid once per network, not once
 per process:
 
@@ -9,16 +8,17 @@ per process:
     layer's block pattern, weights, bias, tile shape) plus every engine
     setting that affects the schedule arrays (``reorder``, ``M_tiles``,
     ``reorder_iters``, ``seed``, ``policy``, ``fuse``, and ``max_move_span``
-    / ``gate`` / ``weight_dtype`` when set) and the artifact format version;
-    the string equals the reference's for the same net and settings, so the
-    two packages share entries;
+    / ``gate`` / ``weight_dtype`` / the mesh when set) and the artifact
+    format version; the string equals the reference's for the same net and
+    settings, so the two packages share entries;
   * the stored artifact is the whole-DAG connection ``order`` (everything
     else re-derives from it deterministically), the flat-schedule arrays
     (to verify the rebuild bit for bit) and the plan's ``IOReport``,
     written through ``checkpoint``'s atomic manifest directories;
-  * a hit calls ``Engine.compile_with_order``: zero annealer iterations, no
-    I/O re-simulation, outputs bit-identical to the cold compile the order
-    came from.  An entry that fails to load or whose arrays no longer match
+  * a hit calls ``Engine.compile_with_order`` (a sharded entry, one order
+    per shard, ``Engine.compile_sharded_with_orders``): zero annealer
+    iterations, no I/O re-simulation, outputs bit-identical to the cold
+    compile the order came from.  An entry that fails to load or whose arrays no longer match
     the rebuild is quarantined and treated as a miss, so stale caches
     self-heal.
 
@@ -43,24 +43,25 @@ from ..checkpoint.store import (
     write_manifest_dir,
 )
 from ..core.blocksparse import BlockFFNN, BSRLayer
-from ..engine import Engine, ExecutionPlan, IOReport
+from ..engine import (
+    Engine,
+    ExecutionPlan,
+    IOReport,
+    Mesh,
+    ShardedExecutionPlan,
+    ShardedIOReport,
+)
 from ..kernels.ops import resolve_weight_dtype
 from ..obs.trace import NULL_TRACER
 
 FORMAT_VERSION = 1
 
 Net = Union[BlockFFNN, Sequence[BSRLayer]]
+AnyPlan = Union[ExecutionPlan, ShardedExecutionPlan]
 
 
 def _layers_of(net: Net):
     return net.layers if isinstance(net, BlockFFNN) else list(net)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded plans are not ported yet; the plan store keeps "
-            "single-device plans only")
 
 
 def layers_fingerprint(net: Net) -> str:
@@ -81,15 +82,15 @@ def layers_fingerprint(net: Net) -> str:
     return h.hexdigest()
 
 
-def plan_cache_key(engine: Engine, net: Net, mesh=None) -> str:
+def plan_cache_key(engine: Engine, net: Net,
+                   mesh: Optional[Mesh] = None) -> str:
     """Content-addressed key: layer hash + schedule-affecting settings.
 
-    ``max_move_span`` / ``gate`` / ``weight_dtype`` enter the dict only when
-    set (non-default), as in the reference, so f32 and quantized, gated and
-    ungated plans of one net never alias.  ``mesh`` is kept for the sharding
-    slice and raises ``NotImplementedError`` when given.
+    ``mesh`` / ``max_move_span`` / ``gate`` / ``weight_dtype`` enter the
+    dict only when set (non-default), as in the reference, so f32 and
+    quantized, gated and ungated, sharded and unsharded plans of one net
+    never alias (a shard's order means nothing under another partition).
     """
-    _no_mesh(mesh)
     settings = {
         "format": FORMAT_VERSION,
         "layers": layers_fingerprint(net),
@@ -107,13 +108,20 @@ def plan_cache_key(engine: Engine, net: Net, mesh=None) -> str:
     wdt = resolve_weight_dtype(engine.weight_dtype)
     if wdt != "f32":
         settings["weight_dtype"] = wdt
+    if mesh is not None:
+        settings["mesh"] = [int(mesh.model), int(mesh.data)]
     return hashlib.sha256(
         json.dumps(settings, sort_keys=True).encode()).hexdigest()
 
 
-def _artifact_dtypes(plan: ExecutionPlan) -> dict:
+def _artifact_dtypes(plan: AnyPlan) -> dict:
     """Logical dtypes of the raw-bit arrays of ``plan.artifact_arrays()``:
-    the quantized blocks (``torch.bfloat16`` -> ``"bfloat16"``)."""
+    the quantized blocks (``torch.bfloat16`` -> ``"bfloat16"``), each
+    shard's under its ``s{i}_`` prefix."""
+    if isinstance(plan, ShardedExecutionPlan):
+        return {f"s{i}_{name}": dtype
+                for i, shard in enumerate(plan.shards)
+                for name, dtype in _artifact_dtypes(shard).items()}
     if plan.flat is None or plan.flat.scales is None:
         return {}
     return {"flat_qblocks": str(plan.flat.blocks.dtype).split(".")[-1]}
@@ -152,6 +160,21 @@ class PlanStore:
 
     def path_for(self, key: str) -> str:
         return os.path.join(self.root, f"plan_{key}")
+
+    def contains(self, engine: Engine, net: Net,
+                 mesh: Optional[Mesh] = None) -> bool:
+        return manifest_exists(
+            self.path_for(plan_cache_key(engine, net, mesh)))
+
+    def evict(self, engine: Engine, net: Net,
+              mesh: Optional[Mesh] = None) -> bool:
+        """Remove the entry for this (engine, net, mesh), if any; True when
+        something was removed."""
+        path = self.path_for(plan_cache_key(engine, net, mesh))
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+            return True
+        return False
 
     def keys(self):
         if not os.path.isdir(self.root):
@@ -197,29 +220,44 @@ class PlanStore:
             shutil.rmtree(path, ignore_errors=True)
 
     # ------------------------------------------------------------------ #
-    def put(self, engine: Engine, plan: ExecutionPlan) -> str:
-        """Persist a compiled plan's schedule artifact (atomic)."""
-        key = plan_cache_key(engine, plan.block_ffnn)
+    def put(self, engine: Engine, plan: AnyPlan) -> str:
+        """Persist a compiled plan's schedule artifact (atomic).
+
+        A :class:`ShardedExecutionPlan` stores one connection order (plus
+        flat-schedule verification arrays) per shard and the per-layer
+        partition assignment, keyed on its mesh.
+        """
+        sharded = isinstance(plan, ShardedExecutionPlan)
+        mesh = plan.mesh if sharded else None
+        key = plan_cache_key(engine, plan.block_ffnn, mesh)
         extra = {
             "format": FORMAT_VERSION,
             "key": key,
-            "n_layers": len(plan.layers),
-            "io": plan.io.to_dict(),
+            "n_layers": plan.n_layers if sharded else len(plan.layers),
+            "io": (plan.io_report() if sharded else plan.io).to_dict(),
             "compile_s": plan.compile_s,
             "annealer_iters": plan.annealer_iters,
-            "fused": plan.fused,
         }
+        if sharded:
+            extra["mesh"] = [int(mesh.model), int(mesh.data)]
+            extra["n_shards"] = len(plan.shards)
+        else:
+            extra["fused"] = plan.fused
         return write_manifest_dir(self.path_for(key), plan.artifact_arrays(),
                                   extra, dtypes=_artifact_dtypes(plan))
 
     def load(self, engine: Engine, net: Net, backend: Optional[str] = None,
-             verify: bool = True, mesh=None) -> Optional[ExecutionPlan]:
+             verify: bool = True,
+             mesh: Optional[Mesh] = None) -> Optional[AnyPlan]:
         """Rebuild a plan from a stored artifact, or None on miss.
 
         ``verify`` additionally checks that the flat-schedule arrays rebuilt
         from the stored order are bit-identical to the stored ones; a
         mismatch (an artifact written by incompatible packing code) is
-        quarantined and treated as a miss.
+        quarantined and treated as a miss.  With ``mesh``, the per-shard
+        orders are rebuilt through ``Engine.compile_sharded_with_orders``
+        (zero annealer iterations per shard) and every shard, and the
+        stored partition, is verified.
         """
         key = plan_cache_key(engine, net, mesh)
         path = self.path_for(key)
@@ -235,18 +273,37 @@ class PlanStore:
             if extra.get("format") != FORMAT_VERSION:
                 # not corrupt — written by another store version; leave it
                 return None
-            io = IOReport.from_dict(extra["io"])
-            order = arrays["order"]
+            if mesh is None:
+                io = IOReport.from_dict(extra["io"])
+                order = arrays["order"]
+            else:
+                if extra.get("mesh") != [int(mesh.model), int(mesh.data)]:
+                    return None
+                n_shards = int(extra["n_shards"])
+                sio = ShardedIOReport.from_dict(extra["io"])
+                orders = [arrays[f"s{i}_order"] for i in range(n_shards)]
         except (OSError, KeyError, ValueError, TypeError) as e:
             # corrupt/unreadable entry (crc mismatch, mangled manifest,
             # wrong-typed metadata field): quarantine it — a miss that
             # recompiles into a fresh entry, never a load loop
             self._quarantine(path, f"load raised {type(e).__name__}: {e}")
             return None
-        plan = engine.compile_with_order(net, order, backend, io=io)
-        if verify and not self._matches(plan, arrays):
-            self._quarantine(path, "self-heal verify failed: rebuilt "
-                                   "flat schedule != stored arrays")
+        if mesh is None:
+            plan = engine.compile_with_order(net, order, backend, io=io)
+            if verify and not self._matches(plan, arrays):
+                self._quarantine(path, "self-heal verify failed: rebuilt "
+                                       "flat schedule != stored arrays")
+                return None
+            return plan
+        if len(sio.per_shard) != n_shards:
+            self._quarantine(path, "self-heal verify failed: stored shard "
+                                   "count != per-shard reports")
+            return None
+        plan = engine.compile_sharded_with_orders(
+            net, mesh, orders, backend, ios=list(sio.per_shard))
+        if verify and not self._matches_sharded(plan, arrays):
+            self._quarantine(path, "self-heal verify failed: rebuilt shard "
+                                   "arrays != stored arrays")
             return None
         return plan
 
@@ -275,25 +332,43 @@ class PlanStore:
                     return False
         return True
 
+    @classmethod
+    def _matches_sharded(cls, plan: ShardedExecutionPlan,
+                         arrays: dict) -> bool:
+        """Every shard's rebuilt arrays, and the partition itself, must
+        match the stored artifact bit for bit; any drift is a miss."""
+        rebuilt = plan.artifact_arrays()
+        for k in range(plan.n_layers):
+            name = f"assign_l{k}"
+            if name not in arrays or \
+                    not np.array_equal(arrays[name], rebuilt[name]):
+                return False
+        for s, shard in enumerate(plan.shards):
+            sub = {name[len(f"s{s}_"):]: arr for name, arr in arrays.items()
+                   if name.startswith(f"s{s}_")}
+            if not sub or not cls._matches(shard, sub):
+                return False
+        return True
+
     def get_or_compile(self, engine: Engine, net: Net,
                        backend: Optional[str] = None,
-                       mesh=None) -> Tuple[ExecutionPlan, bool]:
+                       mesh: Optional[Mesh] = None) -> Tuple[AnyPlan, bool]:
         """Warm-start compile: ``(plan, hit)``.
 
-        Hit: rebuilt from the stored order, zero annealer iterations.
-        Miss: full ``Engine.compile`` (schedule + CR), then persisted so the
-        next process is warm.  Concurrent callers with the same key
+        Hit: rebuilt from the stored order(s), zero annealer iterations.
+        Miss: full ``Engine.compile`` (schedule + CR, per shard with a
+        ``mesh``), then persisted so the next process is warm.  Concurrent callers with the same key
         serialize on a per-key lock, so at most one of them pays the
         compile.
         """
         key = plan_cache_key(engine, net, mesh)
         with self._key_lock(key):
             with self.tracer.span("store.load", key=key[:12]) as sp:
-                plan = self.load(engine, net, backend)
+                plan = self.load(engine, net, backend, mesh=mesh)
                 sp["hit"] = plan is not None
             if plan is not None:
                 return plan, True
             with self.tracer.span("store.compile", key=key[:12]):
-                plan = engine.compile(net, backend)
+                plan = engine.compile(net, backend, mesh=mesh)
                 self.put(engine, plan)
             return plan, False

@@ -336,7 +336,7 @@ class SparseServer:
         leak every response ever served.
       result_ttl_s: optional age bound on uncollected results (evaluated
         against the injected clock on every insert/submit).
-      engine / plan_store / backend: the compile settings
+      engine / plan_store / backend / mesh: the compile settings
         ``swap(net)`` uses to build the replacement plan set; only needed
         when hot-swap by network (rather than by prebuilt plans) is used.
       retry: a :class:`RetryPolicy` for batch execution (per-attempt
@@ -398,6 +398,7 @@ class SparseServer:
         engine=None,
         plan_store=None,
         backend: Optional[str] = None,
+        mesh=None,
         retry: Optional[RetryPolicy] = None,
         breaker: Optional[CircuitBreaker] = None,
         output_guard: bool = True,
@@ -427,6 +428,7 @@ class SparseServer:
         self._engine = engine
         self._plan_store = plan_store
         self._backend = backend
+        self._mesh = mesh
         self._queue: deque = deque()
         self._results: Dict[int, _Slot] = {}
         # finished-and-uncollected rids in completion order (t_done
@@ -1210,7 +1212,7 @@ class SparseServer:
             plans = BucketedPlanSet.compile(
                 net, engine=self._engine, max_batch=self.plans.max_batch,
                 plan_store=self._plan_store, backend=self._backend,
-                safe_twin=self.breaker is not None)
+                mesh=self._mesh, safe_twin=self.breaker is not None)
             if warmup:
                 plans.warmup()
             compile_s, cache_hit = plans.compile_s, plans.cache_hit
@@ -1413,7 +1415,7 @@ class SparseServer:
         fail serving, so a measurement error becomes a trace event and a
         count in ``metrics.io_measure_failed``."""
         base = plans.base
-        if not base.gate or base._measure is None:
+        if not base.gate or getattr(base, "_measure", None) is None:
             return
         try:
             report = base.measure_dynamic(x)
@@ -1499,7 +1501,7 @@ class ModelRouter:
                  **server_kwargs):
         """``server_kwargs`` apply to every model's server;
         ``server_settings[name]`` overlays per-model keyword arguments
-        (e.g. the ``engine=``/``plan_store=`` swap settings, or a
+        (e.g. the ``engine=``/``plan_store=``/``mesh=`` swap settings, or a
         per-model ``breaker=``).  ``watchdog_s`` arms a watchdog over the
         SHARED scheduler thread; ``fault_injector`` fires the
         ``router.scheduler`` chaos site; ``tracer`` is shared by every
@@ -1542,11 +1544,13 @@ class ModelRouter:
     @classmethod
     def compile(cls, nets: Dict[str, object], engine=None, max_batch: int = 32,
                 plan_store=None, backend: Optional[str] = None,
+                meshes: Optional[Dict[str, object]] = None,
                 warmup: bool = True, safe_twin: bool = False,
                 breaker: Optional[Callable[[], CircuitBreaker]] = None,
                 **router_kwargs) -> "ModelRouter":
         """Compile every named network into a bucketed plan set (one
         engine compile or plan-store hit each) and route them together.
+        ``meshes`` optionally shards individual models (``{name: Mesh}``).
         The per-model compile settings are threaded through to each server
         so ``swap(model, net)`` works out of the box.
 
@@ -1562,6 +1566,7 @@ class ModelRouter:
                                             max_batch=max_batch,
                                             plan_store=plan_store,
                                             backend=backend,
+                                            mesh=(meshes or {}).get(name),
                                             safe_twin=safe_twin)
             if warmup:
                 plans.warmup()
@@ -1570,6 +1575,7 @@ class ModelRouter:
                    server_settings={
                        name: dict(engine=engine, plan_store=plan_store,
                                   backend=backend,
+                                  mesh=(meshes or {}).get(name),
                                   **({"breaker": breaker()}
                                      if breaker is not None else {}))
                        for name in models

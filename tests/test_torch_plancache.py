@@ -20,6 +20,7 @@ import torch
 from repro.checkpoint import read_manifest_dir as jax_read
 from repro.checkpoint import write_manifest_dir as jax_write
 from repro.engine import Engine as JaxEngine
+from repro.engine import Mesh as JaxMesh
 from repro.launch.serve import _make_ffnn_layers
 from repro.serving import PlanStore as JaxStore
 from repro.serving import layers_fingerprint as jax_fingerprint
@@ -30,7 +31,7 @@ from repro_torch.checkpoint import (
     write_manifest_dir,
 )
 from repro_torch.convert import layers_from_numpy
-from repro_torch.engine import Engine
+from repro_torch.engine import Engine, Mesh
 from repro_torch.obs import Tracer
 from repro_torch.serving.plancache import _artifact_dtypes
 from repro_torch.serving import (
@@ -81,8 +82,12 @@ def test_cache_keys_equal_the_reference(nets, wdt):
     assert plan_cache_key(te, tl) == jax_key(je, jl)
     seen.add(plan_cache_key(te, tl))
     assert len(seen) == 5                   # no two settings alias
-    with pytest.raises(NotImplementedError, match="sharded"):
-        plan_cache_key(te, tl, mesh=object())
+    # a mesh enters the key as in the reference, and aliases nothing
+    for m, d in ((1, 1), (2, 1), (2, 2)):
+        key = plan_cache_key(te, tl, mesh=Mesh(m, d))
+        assert key == jax_key(je, jl, mesh=JaxMesh(m, d))
+        seen.add(key)
+    assert len(seen) == 8
 
 
 # --------------------------------------------------------------------------- #
