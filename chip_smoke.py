@@ -79,7 +79,21 @@ Phases, each of which must pass (any failure exits non-zero):
      (torch.profiler) and per-call time of ``Mesh(2, 1)`` and ``Mesh(4, 1)``
      beside the unsharded megakernel and ``--no-fuse``; and ``Mesh(2, 1)``
      as two processes on the one card through ``gloo`` all-gathers, where
-     this torch's gloo takes CUDA tensors (else it says so).
+     this torch's gloo takes CUDA tensors (else it says so);
+  9. LM serving (``serve --arch``, no hand-written kernel on its path): all
+     ten architectures reduced through ``serve_lm`` (``--batch 4
+     --prompt-len 32 --gen 16 --requests 8``), every request given 16
+     tokens, prefill and first decode-step logits within 1e-4 (of max
+     |logit|) of the same weights on the CPU; then mamba2-1.3b and
+     granite-moe-1b-a400m at full width in f32: ``serve_lm`` at the
+     reference's defaults, the reference's prefill-then-decode consistency
+     test within 5e-3 (no-drop capacity for the MoE), the same weights on
+     the CPU (B = 1, 8 prompt tokens, 2 decode steps; logits within 1e-3,
+     greedy tokens equal wherever the top-2 margin exceeds the error), and
+     an ``lm:`` JSON line with the peak memory, prefill time, decode-step
+     device and call time, tokens/s, launches and host ops per step, and
+     the step's bound (its f32 weight bytes over 3.35 TB/s); every kernel
+     launch counter must be unchanged across the phase.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the ``kernels``
@@ -137,6 +151,13 @@ SHARD_MESHES, SHARD_BATCHES = ((2, 1), (4, 1), (4, 2)), (1, 4, 33)
 GLOO_TIMEOUT_S = 300.0
 # H100 SXM data-sheet peaks: HBM bytes/s, f32 FMA operations/s outside the
 # tensor cores (the kernels' arithmetic) and bf16 tensor-core operations/s.
+# phase 9: LM serving; reduced archs at --batch 4 --prompt-len 32 --gen 16
+# (card vs CPU within LM_DEVICE_TOL of max |logit|), the two full-width
+# models (card vs CPU within LM_FULL_TOL; the consistency test's 5e-3)
+LM_FULL = ("mamba2-1.3b", "granite-moe-1b-a400m")
+LM_PROMPT, LM_GEN, LM_REDUCED_REQUESTS = 32, 16, 8
+LM_DEVICE_TOL, LM_FULL_TOL, LM_CONSISTENCY_TOL = 1e-4, 1e-3, 5e-3
+LM_CPU_STEPS, LM_TIMED_STEPS, LM_PROFILED_STEPS = 2, 10, 5
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 BF16_OPS = 989e12
@@ -1711,6 +1732,283 @@ def phase_sharded(layers, rng, Engine, unsharded):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: LM serving
+# --------------------------------------------------------------------------- #
+
+def kernel_counts():
+    """Every hand-written kernel's launch counter."""
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.kernels import moe_ffn as M
+
+    return (K.bsr_matmul.launches, K.bsr_megakernel.launches,
+            K.bsr_megakernel.gated_launches, M.moe_ffn.launches)
+
+
+def lm_args(*extra):
+    from repro_torch.launch import serve
+
+    return serve.parse_args(list(extra))
+
+
+def lm_init(cfg, device="cuda"):
+    """Random f32 weights from seed 0, drawn on ``device`` (what serve_lm
+    draws when given none)."""
+    from repro_torch.models import encdec, lm
+
+    mod = encdec if cfg.family == "encdec" else lm
+    return mod.init(torch.Generator(device=device).manual_seed(0), cfg,
+                    dtype=torch.float32)
+
+
+def lm_on_cpu(params, cfg):
+    """The same weights in a module on the CPU."""
+    cpu = type(params)(cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict(params.state_dict())
+    return cpu.requires_grad_(False)
+
+
+def logit_err(a, b):
+    """max |a - b| over max |b| (b on the CPU), and the abs error."""
+    a, b = a.float().cpu(), b.float().cpu()
+    abs_err = float((a - b).abs().max())
+    return abs_err / max(float(b.abs().max()), 1e-30), abs_err
+
+
+def lm_steps(params, cfg, prompt, steps, fed=None, enc_in=None):
+    """Prefill logits, then ``steps`` decode steps, each fed ``fed[i]``
+    when given, else the greedy token of the step before:
+    ([logits of each step], [token fed to each decode step])."""
+    from repro_torch.engine import Mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import encdec, lm
+
+    dev = next(params.parameters()).device
+    S = prompt.shape[1]
+    prompt = prompt.to(dev)
+    if cfg.family == "encdec":
+        logits, enc_out = make_prefill_step(cfg)(
+            params, {"src_embeds": enc_in.to(dev), "tgt_tokens": prompt})
+        caches = encdec.make_dec_caches(params, cfg, enc_out, S + steps,
+                                        dtype=torch.float32)
+    else:
+        logits, caches = lm.prefill(params, cfg, tokens=prompt)
+        caches = lm.grow_caches(cfg, caches, S + steps)
+    out, tokens = [logits], []
+    for i in range(steps):
+        tok = (fed[i] if fed is not None
+               else logits.argmax(-1).to(torch.int32)[:, None]).to(dev)
+        tokens.append(tok.cpu())
+        if cfg.family == "encdec":
+            logits, caches = encdec.decode_step(params, cfg, tok, caches)
+        else:
+            logits, caches = lm.decode_step(params, cfg, tok, caches,
+                                            mesh=Mesh(1, 1))
+        out.append(logits)
+    return out, tokens
+
+
+def phase_lm_reduced(arch, requests):
+    """One reduced arch: serve_lm on the card, then its prefill and first
+    decode step against the same weights on the CPU."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+
+    cfg = reduced(get_config(arch))
+    args = lm_args("--arch", arch, "--batch", "4", "--prompt-len",
+                   str(LM_PROMPT), "--gen", str(LM_GEN), "--requests",
+                   str(requests))
+    params = lm_init(cfg)
+    report = serve.serve_lm(cfg, args, params=params)
+    check(len(report.sequences) == requests and all(
+        len(seq) == LM_GEN for seq in report.sequences)
+        and report.tokens == requests * LM_GEN,
+        f"{arch}: {len(report.sequences)} sequences, {report.tokens} tokens")
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, LM_PROMPT)))
+    enc_in = torch.from_numpy((rng.standard_normal(
+        (4, LM_PROMPT, cfg.d_model)) * 0.05).astype(np.float32))
+    with torch.inference_mode():
+        on_card, fed = lm_steps(params, cfg, prompt, 1, enc_in=enc_in)
+        on_cpu, _ = lm_steps(lm_on_cpu(params, cfg), cfg, prompt, 1, fed,
+                             enc_in)
+    errs = [logit_err(a, b)[0] for a, b in zip(on_card, on_cpu)]
+    check(max(errs) <= LM_DEVICE_TOL,
+          f"{arch}: card vs CPU logits, prefill {errs[0]:.3e}, decode "
+          f"{errs[1]:.3e} (tolerance {LM_DEVICE_TOL})")
+    return max(errs), report.tokens / report.seconds
+
+
+def lm_bytes(params, cfg, B, window):
+    """Bytes a decode step must read: every f32 weight (the embedding is
+    the tied unembedding, or only B rows of it are gathered; at B = 4 every
+    expert holds a capacity slot, so each expert's weights are read), and
+    the caches it reads and writes."""
+    weights = sum(p.numel() * p.element_size() for name, p in
+                  params.named_parameters()
+                  if name != "embed" or not cfg.tie_embeddings)
+    if cfg.tie_embeddings:
+        weights += params.embed.numel() * params.embed.element_size()
+    else:
+        weights += B * cfg.d_model * params.embed.element_size()
+    if cfg.family == "ssm":
+        cache = 4 * cfg.n_layers * B * (
+            cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state
+            + (cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state))
+    else:
+        cache = 4 * cfg.n_layers * B * window * 2 * cfg.n_kv_heads * cfg.hd
+    return weights, 2 * cache
+
+
+def lm_trace(fn, runs=2):
+    """Where a decode step's host time goes: from one torch.profiler trace
+    of ``runs`` calls, the device activities per call and the host ops
+    with the most self time (ms per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return dev / runs, {e.key: round(e.self_cpu_time_total / 1e3 / runs, 3)
+                        for e in top[:8]}
+
+
+def phase_lm_full(arch):
+    """One model at full width, in f32: serving at the reference's
+    defaults, the reference's consistency test, a CPU cross-check, and the
+    figures of a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Mesh
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_init(cfg)
+    n = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    print(f"{arch}: {n} parameters ({4 * n} B in f32; cfg.n_params() "
+          f"{cfg.n_params()}), drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    args = lm_args("--arch", arch)
+    report = serve.serve_lm(cfg, args, params=params)
+    check(len(report.sequences) == args.requests and all(
+        len(seq) == args.gen for seq in report.sequences),
+        f"{arch}: {len(report.sequences)} sequences served")
+    rng = np.random.default_rng(1)
+    with torch.inference_mode():
+        # the reference's consistency test (tests/test_models.py:60-90)
+        ccfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)) \
+            if cfg.family == "moe" else cfg
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32))).cuda()
+        W = lm.unembed_matrix(params)
+        full = lm.forward(params, ccfg, tokens=toks)[0][:, -1] @ W
+        logits, caches = lm.prefill(params, ccfg, tokens=toks)
+        e_pre = float((logits - full).abs().max())
+        nxt = logits.argmax(-1)[:, None]
+        caches = lm.grow_caches(ccfg, caches, 36)
+        logits, _ = lm.decode_step(params, ccfg, nxt, caches, mesh=Mesh(1, 1))
+        full = lm.forward(params, ccfg, tokens=torch.cat([toks, nxt], 1))[0][
+            :, -1] @ W
+        e_dec = float((logits - full).abs().max())
+        tol = LM_CONSISTENCY_TOL
+        check(bool(torch.allclose(logits, full, rtol=tol, atol=tol))
+              and e_pre <= tol * (1 + float(full.abs().max())),
+              f"{arch}: prefill/decode vs full forward: {e_pre:.3e}, "
+              f"{e_dec:.3e} (tolerance {tol})")
+        del caches, full, logits
+        # the same weights on the CPU: B = 1, 8 prompt tokens, 2 greedy
+        # decode steps on the card, the CPU fed the card's tokens
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 8)))
+        card_logits, fed = lm_steps(params, cfg, prompt, LM_CPU_STEPS)
+        cpu_logits, _ = lm_steps(lm_on_cpu(params, cfg), cfg, prompt,
+                                 LM_CPU_STEPS, fed)
+    worst, margin = 0.0, float("inf")
+    for i, (a, b) in enumerate(zip(card_logits, cpu_logits)):
+        err, abs_err = logit_err(a, b)
+        check(err <= LM_FULL_TOL, f"{arch}: card vs CPU logits at step {i}: "
+              f"{err:.3e} (tolerance {LM_FULL_TOL})")
+        worst = max(worst, err)
+        top2 = b.float().cpu().topk(2, dim=-1).values[0]
+        gap = float(top2[0] - top2[1])
+        margin = min(margin, gap)
+        if gap > abs_err:
+            check(int(a.argmax()) == int(b.argmax()),
+                  f"{arch}: greedy token differs at step {i} (margin "
+                  f"{gap:.3e} > error {abs_err:.3e})")
+    peak = torch.cuda.max_memory_allocated()
+    # figures of one decode step at the serving batch (B = 4, window
+    # prompt + gen)
+    B, window = args.batch, args.prompt_len + args.gen
+    serve_step = make_serve_step(cfg, Mesh(1, 1))
+    with torch.inference_mode():
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, args.prompt_len)))
+        prompts = prompts.cuda()
+
+        def prefill():
+            return lm.prefill(params, cfg, tokens=prompts)
+
+        pre_ms = median_ms(prefill, runs=5, warm=2)
+        logits, caches = prefill()
+        caches = lm.grow_caches(cfg, caches, window)
+        cur = logits.argmax(-1).to(torch.int32)[:, None]
+
+        def step():
+            return serve_step(params, caches, cur)
+
+        dev_ms = device_ms(step, runs=LM_PROFILED_STEPS, warm=2)
+        call_ms = median_ms(step, runs=LM_TIMED_STEPS, warm=3)
+        launches, host_top = lm_trace(step)
+    w_bytes, c_bytes = lm_bytes(params, cfg, B, window)
+    b_ms = 1e3 * w_bytes / HBM_BPS
+    row = {"arch": arch, "params": n, "peak_bytes": peak,
+           "prefill_ms": pre_ms, "decode_device_ms": dev_ms,
+           "decode_call_ms": call_ms,
+           "tok_per_s": report.tokens / report.seconds,
+           "decode_tok_per_s": B / call_ms * 1e3,
+           "bound_ms": b_ms, "weight_bytes": w_bytes, "cache_bytes": c_bytes,
+           "bound_with_cache_ms": 1e3 * (w_bytes + c_bytes) / HBM_BPS,
+           "device_launches_per_step": launches,
+           "host_top_ms_per_step": host_top,
+           "card_vs_cpu_worst": worst, "smallest_top2_margin": margin,
+           "consistency_err": [e_pre, e_dec]}
+    print("lm: " + json.dumps(row))
+    del params, caches, serve_step
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm():
+    """Phase 9: every architecture reduced through serve_lm on the card and
+    against the CPU, then mamba2-1.3b and granite-moe-1b-a400m at full
+    width; no hand-written kernel may launch."""
+    from repro_torch.configs import ARCH_IDS
+
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    for arch in ARCH_IDS:
+        err, rate = phase_lm_reduced(arch, LM_REDUCED_REQUESTS)
+        print(f"lm reduced {arch}: card vs CPU logits {err:.3e} "
+              f"(tolerance {LM_DEVICE_TOL}), {rate:.1f} tok/s")
+    rows = [phase_lm_full(arch) for arch in LM_FULL]
+    check(kernel_counts() == before,
+          f"a hand-written kernel launched during LM serving: "
+          f"{before} -> {kernel_counts()}")
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s; no hand-written "
+          f"kernel launched")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1743,6 +2041,7 @@ def main() -> int:
             phase_moe()
         phase_runtime()
         sharded_launches = phase_sharded(layers, rng, Engine, plans["f32"])
+        phase_lm()
         kernels = kernel_line(entries, launches, main_err, sharded_launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

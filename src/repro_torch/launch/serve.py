@@ -1,6 +1,15 @@
-"""Serve the paper's sparse-FFNN workload on one GPU.
+"""Serve a language model, or the paper's sparse-FFNN workload, on one GPU.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
     PYTHONPATH=src python -m repro_torch.launch.serve --sparse-ffnn
+
+Without ``--sparse-ffnn`` it serves ``--arch`` (any registered
+architecture; ``--reduced`` is always on, as in the reference's CLI) with
+random weights from seed 0, in f32: ``--requests`` prompts of
+``--prompt-len`` tokens drawn from ``np.random.default_rng(0)``, served
+``--batch`` at a time (continuous batching slots), each prefilled and then
+decoded greedily for ``--gen`` tokens.  No hand-written kernel lies on that
+path: its products are PyTorch's, as the reference's are ``jnp``'s.
 
 Feature vectors go through a block-magnitude-pruned sparse FFNN — by default
 the paper's BERT-large encoder FFNN, 1024 -> 4096 -> 1024, density 0.1,
@@ -36,8 +45,8 @@ The serving runtime is the reference's:
   * ``--metrics-port P`` exposes the Prometheus endpoint; ``--trace-out``
     writes the request lifecycle as a Chrome trace.
 
-Port of ``repro.launch.serve --sparse-ffnn``; the same request stream comes
-from the same numpy seed.
+Port of ``repro.launch.serve``; the same request stream comes from the
+same numpy seed.
 """
 
 from __future__ import annotations
@@ -54,9 +63,13 @@ from collections import Counter, deque
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
+from ..configs import ARCH_IDS, get_config, reduced
 from ..core.blocksparse import BSRLayer
 from ..engine import Engine, Mesh
+from ..models import encdec, lm
+from ..models.config import ModelConfig
 from ..obs import MetricsServer, Tracer
 from ..serving import (
     BucketedPlanSet,
@@ -68,6 +81,7 @@ from ..serving import (
     SparseServer,
 )
 from ..sparse import prune_dense_stack
+from .steps import make_serve_step
 
 Runtime = Union[SparseServer, ModelRouter]
 # how long the driver waits for one answer, or for the drain at the end, in
@@ -423,11 +437,97 @@ def serve_sparse_ffnn(args) -> ServeReport:
     return report
 
 
+@dataclasses.dataclass
+class LMServeReport:
+    """What one LM serving run did: each request's generated tokens, in
+    the order served, and the run's totals."""
+
+    sequences: List[np.ndarray]
+    tokens: int
+    seconds: float
+
+
+def _lm_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "LM serving on device 'cuda' needs a CUDA device and none is "
+            "available; pass --device cpu to serve on the CPU")
+    return device
+
+
+def serve_lm(cfg: ModelConfig, args, params=None) -> LMServeReport:
+    """The reference's LM serving loop on ``args.device``.
+
+    ``params`` is an ``lm.LM`` / ``encdec.EncDec`` on that device (None:
+    random f32 weights from seed 0).  Prompts come from
+    ``np.random.default_rng(0)``, all drawn before the first batch; the
+    encdec family draws each batch's encoder input (``standard_normal *
+    0.05``) from the same generator.  Each batch of up to ``args.batch``
+    prompts is prefilled (encdec: encoded, its decoder started from token
+    0), its caches grown to ``prompt_len + gen``, then decoded greedily;
+    the decode step runs under a 1x1 mesh, so ``moe_impl="a2a"`` configs
+    take the one-shard expert-parallel body there, as in the reference.
+    """
+    device = _lm_device(args.device)
+    mod = encdec if cfg.family == "encdec" else lm
+    if params is None:
+        params = mod.init(torch.Generator(device=device).manual_seed(0), cfg,
+                          dtype=torch.float32)
+    serve_step = make_serve_step(cfg, Mesh(1, 1))
+
+    rng = np.random.default_rng(0)
+    window = args.prompt_len + args.gen
+    queue = deque(
+        rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32)
+        for _ in range(args.requests))
+    done: List[np.ndarray] = []
+    tokens_out = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        while queue:
+            # fill a batch of slots from the queue (continuous batching)
+            slot_prompts = [queue.popleft()
+                            for _ in range(min(args.batch, len(queue)))]
+            B = len(slot_prompts)
+            prompts = torch.from_numpy(np.stack(slot_prompts)).to(device)
+            if cfg.family == "encdec":
+                enc_in = torch.as_tensor(
+                    rng.standard_normal((B, args.prompt_len, cfg.d_model)) * 0.05,
+                    dtype=torch.float32).to(device)
+                enc_out = encdec.encode(params, cfg, enc_in)
+                caches = encdec.make_dec_caches(params, cfg, enc_out,
+                                                window=window,
+                                                dtype=torch.float32)
+                cur = torch.zeros((B, 1), dtype=torch.int32, device=device)
+            else:
+                logits, caches = lm.prefill(params, cfg, tokens=prompts)
+                caches = lm.grow_caches(cfg, caches, window)
+                cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            outs = [cur]
+            for _ in range(args.gen - 1):
+                cur, caches = serve_step(params, caches, cur)
+                outs.append(cur)
+            gen = torch.cat(outs, dim=1).cpu().numpy()
+            tokens_out += gen.size
+            done.extend(list(gen))
+    dt = time.perf_counter() - t0
+    print(f"arch={cfg.name} served {len(done)} sequences, "
+          f"{tokens_out} tokens in {dt:.2f}s "
+          f"({tokens_out / max(dt, 1e-9):.1f} tok/s greedy)")
+    print("sample:", done[0][:16].tolist() if done else "none")
+    return LMServeReport(sequences=done, tokens=tokens_out, seconds=dt)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sparse-ffnn", action="store_true", required=True,
-                    help="serve the paper's sparse-FFNN workload (the only "
-                         "workload this port serves so far)")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="mamba2-1.3b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--sparse-ffnn", action="store_true",
+                    help="serve the paper's sparse-FFNN workload via the "
+                         "fused inference engine instead of an LM")
     ap.add_argument("--async", dest="async_mode", action="store_true",
                     help="drive the serving loop from a background "
                          "scheduler thread (real clock) instead of the "
@@ -441,7 +541,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--block", type=int, default=128)
     ap.add_argument("--reorder-iters", type=int, default=300)
     ap.add_argument("--batch", type=int, default=4,
-                    help="largest batch the scheduler forms (top bucket)")
+                    help="largest batch the scheduler forms (top bucket); "
+                         "LM: prompts served together")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--no-fuse", action="store_true",
                     help="serve with per-layer dispatch (one bsr_matmul "
@@ -514,12 +615,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "spans) on exit")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the CUDA kernels; cpu their plain "
-                         "versions")
+                         "versions (LM: the device that serves)")
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    serve_sparse_ffnn(parse_args(argv))
+    args = parse_args(argv)
+    if args.sparse_ffnn:
+        serve_sparse_ffnn(args)
+        return
+    cfg = get_config(args.arch)
+    serve_lm(reduced(cfg) if args.reduced else cfg, args)
 
 
 if __name__ == "__main__":

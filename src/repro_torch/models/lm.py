@@ -1,0 +1,350 @@
+"""Decoder-only LM assembly for all four families: dense, moe, ssm, hybrid.
+
+Port of ``repro.models.lm`` (serving half).  Layers live in an
+``nn.ModuleList`` and run in a Python loop where the reference scans over
+stacked parameters.  The hybrid (zamba2) family runs groups of
+``attn_period`` Mamba2 layers, each group followed by one application of a
+single *shared* attention+MLP block, then the ``n_layers % attn_period``
+tail layers.
+
+Caches keep the reference's stacked layouts, so they compare directly:
+``{"attn": {"k", "v": [L, B, S, K, hd], "pos": [L]}}`` (dense, moe),
+``{"ssm": {"conv": [L, B, Kw-1, Ch], "state": [L, B, H, P, N]}}`` (ssm),
+and ``{"ssm_main": [G, P, ...], "ssm_tail": [tail, ...] or None,
+"attn": [G, ...]}`` (hybrid: G groups of P layers).
+
+Entry points (the reference's, with the module in place of ``params``):
+  init(generator, cfg)                     -> LM on the generator's device
+  forward(params, cfg, tokens|embeds)      -> (h, aux)
+  prefill(params, cfg, tokens|embeds)      -> (last-token logits, caches)
+  decode_step(params, cfg, token, caches, mesh) -> (logits, caches)
+The loss waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+from .common import dense_init_, param, rms_norm
+from .config import ModelConfig
+from .layers import MLP, Attention, MoE, attention, make_cache, mlp, moe
+from .ssm import SSM, make_ssm_cache, ssm_block
+
+
+# =============================================================================
+# modules and init
+# =============================================================================
+
+class AttnBlock(nn.Module):
+    """Pre-norm attention + MLP (or MoE when ``moe``) block."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype, moe_ffn: bool = False):
+        super().__init__()
+        self.ln1 = param((cfg.d_model,), device, dtype)
+        self.attn = Attention(cfg, device, dtype)
+        self.ln2 = param((cfg.d_model,), device, dtype)
+        if moe_ffn:
+            self.moe = MoE(cfg, device, dtype)
+        else:
+            self.mlp = MLP(cfg, device, dtype)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.attn.init_(gen)
+        (self.moe if hasattr(self, "moe") else self.mlp).init_(gen)
+
+
+class SSMBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        self.ln = param((cfg.d_model,), device, dtype)
+        self.ssm = SSM(cfg, device, dtype)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        self.ln.fill_(1.0)
+        self.ssm.init_(gen)
+
+
+class LM(nn.Module):
+    """The reference's parameter tree as modules; ``state_dict`` names are
+    its paths with the layer index after ``layers`` (``layers.3.attn.wq``
+    is the reference's ``params["layers"]["attn"]["wq"][3]``)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", dtype=torch.bfloat16):
+        super().__init__()
+        d, V = cfg.d_model, cfg.vocab
+        self.embed = param((V, d), device, dtype)
+        self.final_norm = param((d,), device, dtype)
+        if cfg.family in ("ssm", "hybrid"):
+            layers = [SSMBlock(cfg, device, dtype) for _ in range(cfg.n_layers)]
+        else:
+            layers = [AttnBlock(cfg, device, dtype, moe_ffn=cfg.family == "moe")
+                      for _ in range(cfg.n_layers)]
+        self.layers = nn.ModuleList(layers)
+        if cfg.tie_embeddings:
+            self.register_parameter("unembed", None)
+        else:
+            self.unembed = param((d, V), device, dtype)
+        # zamba2's shared attention+MLP block (one copy, applied every period)
+        self.shared_attn = (AttnBlock(cfg, device, dtype)
+                            if cfg.family == "hybrid" else None)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        dense_init_(self.embed, gen, in_axis=1)
+        self.final_norm.fill_(1.0)
+        for block in self.layers:
+            block.init_(gen)
+        if self.unembed is not None:
+            dense_init_(self.unembed, gen)
+        if self.shared_attn is not None:
+            self.shared_attn.init_(gen)
+
+
+def init(generator: torch.Generator, cfg: ModelConfig,
+         dtype=torch.bfloat16) -> LM:
+    """Random weights with the reference's distributions (normal /
+    sqrt(fan_in), ones for norms, the SSM's own init), drawn from
+    ``generator`` on its device.  ``jax.random`` cannot be reproduced, so
+    to match the reference carry its weights across with
+    ``repro_torch.convert.lm_params_from_numpy``."""
+    model = LM(cfg, device=generator.device, dtype=dtype)
+    model.init_(generator)
+    return model
+
+
+# =============================================================================
+# blocks
+# =============================================================================
+
+def _dense_block(p: AttnBlock, h, positions, cfg: ModelConfig, mesh=None,
+                 cache=None):
+    a, new_cache = attention(p.attn, rms_norm(h, p.ln1, cfg.norm_eps),
+                             positions, cfg, causal=True, cache=cache)
+    h = h + a
+    aux = torch.zeros((), device=h.device)
+    if cfg.family == "moe":
+        m, aux = moe(p.moe, rms_norm(h, p.ln2, cfg.norm_eps), cfg, mesh)
+    else:
+        m = mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+    return h + m, aux, new_cache
+
+
+def _ssm_layer(p: SSMBlock, h, cfg: ModelConfig, cache=None):
+    s, new_cache = ssm_block(p.ssm, rms_norm(h, p.ln, cfg.norm_eps), cfg,
+                             cache=cache)
+    return h + s, new_cache
+
+
+def _shared_attn_block(p: AttnBlock, h, positions, cfg: ModelConfig,
+                       cache=None):
+    a, new_cache = attention(p.attn, rms_norm(h, p.ln1, cfg.norm_eps),
+                             positions, cfg, causal=True, cache=cache)
+    h = h + a
+    h = h + mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+    return h, new_cache
+
+
+def _groups(cfg: ModelConfig):
+    """The hybrid's layout: (groups, period, tail)."""
+    period = cfg.attn_period
+    return cfg.n_layers // period, period, cfg.n_layers % period
+
+
+def _stack(caches: List[Dict]) -> Dict:
+    """Per-layer cache dicts -> one dict of tensors stacked on axis 0."""
+    return {key: torch.stack([c[key] for c in caches]) for key in caches[0]}
+
+
+def _index(caches: Dict, i) -> Dict:
+    return {key: val[i] for key, val in caches.items()}
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+# =============================================================================
+# forward
+# =============================================================================
+
+def embed_tokens(params: LM, tokens: torch.Tensor) -> torch.Tensor:
+    return params.embed[tokens.long()]
+
+
+def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None):
+    """Full-sequence forward (no caches): (final-normed h [B, S, d], aux)."""
+    h = embed_tokens(params, tokens) if embeds is None else embeds
+    B, S = h.shape[:2]
+    positions = _positions(B, S, h.device)
+    aux = torch.zeros((), device=h.device)
+    if cfg.family in ("dense", "moe"):
+        for p in params.layers:
+            h, a, _ = _dense_block(p, h, positions, cfg, mesh)
+            aux = aux + a
+    elif cfg.family == "ssm":
+        for p in params.layers:
+            h = _ssm_layer(p, h, cfg)[0]
+    else:
+        G, P, _ = _groups(cfg)
+        for i, p in enumerate(params.layers):
+            h = _ssm_layer(p, h, cfg)[0]
+            if i < G * P and i % P == P - 1:
+                h = _shared_attn_block(params.shared_attn, h, positions, cfg)[0]
+    return rms_norm(h, params.final_norm, cfg.norm_eps), aux
+
+
+def unembed_matrix(params) -> torch.Tensor:
+    if params.unembed is not None:
+        return params.unembed                          # [d, V]
+    return params.embed.T                              # tied
+
+
+def _logits(params, h) -> torch.Tensor:
+    """f32 logits of h [..., d] (the reference's f32-accumulated product)."""
+    return torch.matmul(h.float(), unembed_matrix(params).float())
+
+
+# =============================================================================
+# serving: prefill + decode
+# =============================================================================
+
+def _stacked(one: Dict, *lead: int) -> Dict:
+    return {key: val.expand(*lead, *val.shape).clone() for key, val in one.items()}
+
+
+def make_caches(cfg: ModelConfig, batch: int, length: int,
+                dtype=torch.bfloat16, device="cuda") -> Dict:
+    L = cfg.n_layers
+    if cfg.family in ("dense", "moe"):
+        return {"attn": _stacked(make_cache(cfg, batch, length, dtype, device), L)}
+    if cfg.family == "ssm":
+        return {"ssm": _stacked(make_ssm_cache(cfg, batch, dtype, device), L)}
+    G, P, tail = _groups(cfg)
+    ssm_one = make_ssm_cache(cfg, batch, dtype, device)
+    return {
+        "ssm_main": _stacked(ssm_one, G, P),
+        "ssm_tail": _stacked(ssm_one, tail),
+        "attn": _stacked(make_cache(cfg, batch, length, dtype, device), G),
+    }
+
+
+def grow_caches(cfg: ModelConfig, caches: Dict, window: int) -> Dict:
+    """Pad attention KV windows (from prefill) up to ``window`` for
+    decoding: axis 2 of the stacked [L, B, S, ...] tensors."""
+    out = dict(caches)
+    attn = caches.get("attn")
+    if attn is not None and attn["k"].shape[2] < window:
+        pad = window - attn["k"].shape[2]
+        out["attn"] = {
+            key: (val if key == "pos" else torch.nn.functional.pad(
+                val, (0, 0, 0, 0, 0, pad)))
+            for key, val in attn.items()}
+    return out
+
+
+def decode_step(params: LM, cfg: ModelConfig, tokens, caches: Dict, mesh=None,
+                embeds=None):
+    """One token for every sequence in the batch.  tokens: [B, 1].
+
+    Returns (f32 logits [B, V], new caches); ``caches`` is not modified.
+    Decode positions come from ``caches["attn"]["pos"][0]``."""
+    h = embed_tokens(params, tokens) if embeds is None else embeds
+    B = h.shape[0]
+
+    if cfg.family in ("dense", "moe"):
+        positions = caches["attn"]["pos"][0].expand(B, 1)
+        new = []
+        for i, p in enumerate(params.layers):
+            h, _, c = _dense_block(p, h, positions, cfg, mesh,
+                                   cache=_index(caches["attn"], i))
+            new.append(c)
+        new_caches = {"attn": _stack(new)}
+    elif cfg.family == "ssm":
+        new = []
+        for i, p in enumerate(params.layers):
+            h, c = _ssm_layer(p, h, cfg, cache=_index(caches["ssm"], i))
+            new.append(c)
+        new_caches = {"ssm": _stack(new)}
+    else:  # hybrid
+        G, P, tail = _groups(cfg)
+        positions = caches["attn"]["pos"][0].expand(B, 1)
+        main, attn = [], []
+        for g in range(G):
+            group_c = _index(caches["ssm_main"], g)
+            group = []
+            for j in range(P):
+                h, c = _ssm_layer(params.layers[g * P + j], h, cfg,
+                                  cache=_index(group_c, j))
+                group.append(c)
+            main.append(_stack(group))
+            h, c = _shared_attn_block(params.shared_attn, h, positions, cfg,
+                                      cache=_index(caches["attn"], g))
+            attn.append(c)
+        new_tail = caches["ssm_tail"]
+        if tail:
+            tails = []
+            for j in range(tail):
+                h, c = _ssm_layer(params.layers[G * P + j], h, cfg,
+                                  cache=_index(caches["ssm_tail"], j))
+                tails.append(c)
+            new_tail = _stack(tails)
+        new_caches = {"ssm_main": _stack(main), "ssm_tail": new_tail,
+                      "attn": _stack(attn)}
+
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return _logits(params, h)[:, 0], new_caches
+
+
+def prefill(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None):
+    """Process the prompt; returns (last-position f32 logits, caches primed
+    at S).  For attention families the cache window equals the prompt
+    length (``grow_caches`` pads it for decoding)."""
+    h = embed_tokens(params, tokens) if embeds is None else embeds
+    B, S = h.shape[:2]
+    positions = _positions(B, S, h.device)
+
+    def ssm_cache():
+        return make_ssm_cache(cfg, B, h.dtype, h.device)
+
+    if cfg.family in ("dense", "moe"):
+        new = []
+        for p in params.layers:
+            h, _, c = _dense_block(p, h, positions, cfg, mesh, cache={})
+            new.append(c)
+        new_caches = {"attn": _stack(new)}
+    elif cfg.family == "ssm":
+        new = []
+        for p in params.layers:
+            h, c = _ssm_layer(p, h, cfg, cache=ssm_cache())
+            new.append(c)
+        new_caches = {"ssm": _stack(new)}
+    else:
+        G, P, tail = _groups(cfg)
+        main, attn = [], []
+        for g in range(G):
+            group = []
+            for j in range(P):
+                h, c = _ssm_layer(params.layers[g * P + j], h, cfg,
+                                  cache=ssm_cache())
+                group.append(c)
+            main.append(_stack(group))
+            h, c = _shared_attn_block(params.shared_attn, h, positions, cfg,
+                                      cache={})
+            attn.append(c)
+        tails = []
+        for j in range(tail):
+            h, c = _ssm_layer(params.layers[G * P + j], h, cfg, cache=ssm_cache())
+            tails.append(c)
+        new_caches = {"ssm_main": _stack(main),
+                      "ssm_tail": _stack(tails) if tails else None,
+                      "attn": _stack(attn)}
+
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return _logits(params, h[:, -1]), new_caches

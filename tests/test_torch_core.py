@@ -28,11 +28,31 @@ COPIES = [f"core/{name}" for name in (
     "serving/resilience.py", "serving/http.py"]
 
 
+# copies whose only change is the package name on their import lines
+IMPORT_COPIES = ["models/config.py"] + sorted(
+    f"configs/{f.name}" for f in (ROOT / "src" / "repro" / "configs").glob("*.py"))
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_byte_identical(rel):
     ref = (ROOT / "src" / "repro" / rel).read_bytes()
     port = (ROOT / "src" / "repro_torch" / rel).read_bytes()
     assert port == ref
+
+
+@pytest.mark.parametrize("rel", IMPORT_COPIES)
+def test_copy_differs_only_in_import_lines(rel):
+    """The model config and the architecture registry: every line equal to
+    the reference's, except imports of ``repro.`` that name
+    ``repro_torch.`` instead."""
+    ref = (ROOT / "src" / "repro" / rel).read_text().splitlines()
+    port = (ROOT / "src" / "repro_torch" / rel).read_text().splitlines()
+    assert len(port) == len(ref)
+    changed = [(a, b) for a, b in zip(ref, port) if a != b]
+    assert changed, "expected the import of the registry to change"
+    for a, b in changed:
+        assert a.lstrip().startswith(("import repro.", "from repro.")), a
+        assert b == a.replace("repro.", "repro_torch.", 1), (a, b)
 
 
 def test_import_leaves_out_jax_and_repro():
@@ -44,6 +64,8 @@ def test_import_leaves_out_jax_and_repro():
         "import repro_torch.kernels._build, repro_torch.kernels.moe_ffn\n"
         "import repro_torch.obs, repro_torch.checkpoint\n"
         "import repro_torch.serving, repro_torch.serving.plancache\n"
+        "import repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.launch.steps\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', "
         f"{str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
