@@ -93,7 +93,27 @@ Phases, each of which must pass (any failure exits non-zero):
      an ``lm:`` JSON line with the peak memory, prefill time, decode-step
      device and call time, tokens/s, launches and host ops per step, and
      the step's bound (its f32 weight bytes over 3.35 TB/s); every kernel
-     launch counter must be unchanged across the phase.
+     launch counter must be unchanged across the phase;
+ 10. training (``repro_torch.launch.train``, no hand-written kernel on its
+     path): one arch per family and internvl2-26b's ``embeds`` batches,
+     reduced, in f32 with remat on: one ``make_train_step`` on the card
+     against the same weights and batch on the CPU (loss within 1e-5,
+     ``grad_norm`` within 1e-4, the new master within 1e-2 * lr plus
+     Adam's bound for near-zero gradients), and the loss and gradients with
+     remat on against remat off on the card; the entry point reduced
+     (``--reduced --steps 12 --ckpt-every 4 --inject-fault-at 6``) under
+     ``torch.use_deterministic_algorithms(True)``: one restart, finite and
+     falling losses, final weights and optimizer state bit-equal to a run
+     without the fault, and the last checkpoint restored into a fresh model
+     bit for bit; then granite-moe-1b-a400m at full width through
+     ``main`` at its defaults (bf16, B = 8, S = 128, remat on, 10 steps):
+     finite and falling losses, the first near ln(vocab), the final
+     checkpoint restored bit for bit; in f32 at B = 1, S = 16 the loss and
+     gradient norm on the card against the CPU with the same weights; and a
+     ``train:`` JSON line with the parameter count, peak memory, the step's
+     device and call time, tokens/s, launches and host ops per step, its
+     bound, the checkpoint's save and restore time; every kernel launch
+     counter must be unchanged across the phase.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the ``kernels``
@@ -103,8 +123,11 @@ file, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
+import os
 import re
 import shutil
 import subprocess
@@ -158,6 +181,19 @@ LM_FULL = ("mamba2-1.3b", "granite-moe-1b-a400m")
 LM_PROMPT, LM_GEN, LM_REDUCED_REQUESTS = 32, 16, 8
 LM_DEVICE_TOL, LM_FULL_TOL, LM_CONSISTENCY_TOL = 1e-4, 1e-3, 5e-3
 LM_CPU_STEPS, LM_TIMED_STEPS, LM_PROFILED_STEPS = 2, 10, 5
+# phase 10: one arch per family (and the vision stub's embeds), reduced,
+# card vs CPU (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL); the entry point reduced,
+# then TRAIN_FULL at full width for TRAIN_FULL_STEPS steps
+TRAIN_ARCHS = ("granite-moe-1b-a400m", "codeqwen1.5-7b", "mamba2-1.3b",
+               "zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b")
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 1e-5, 1e-4
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
+TRAIN_FULL, TRAIN_FULL_STEPS = "granite-moe-1b-a400m", 10
+TRAIN_CPU_B, TRAIN_CPU_S = 1, 16
+# a full-width step is ~16k launches and a profiled one costs seconds of
+# trace processing: device_ms traces one step (after one warm-up step), so
+# its whole-number-per-call check never retries
+TRAIN_TIMED_STEPS, TRAIN_PROFILED_STEPS = 5, 1
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 BF16_OPS = 989e12
@@ -1860,10 +1896,12 @@ def lm_bytes(params, cfg, B, window):
     return weights, 2 * cache
 
 
-def lm_trace(fn, runs=2):
-    """Where a decode step's host time goes: from one torch.profiler trace
-    of ``runs`` calls, the device activities per call and the host ops
-    with the most self time (ms per call)."""
+def lm_trace(fn, runs=2, device_top=None):
+    """Where a step's host time goes: from one torch.profiler trace of
+    ``runs`` calls, the device activities per call and the host ops with
+    the most self time (ms per call); with ``device_top`` (a dict), also
+    fills it with the device kernels of the most total time (ms per
+    call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1874,8 +1912,19 @@ def lm_trace(fn, runs=2):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    dev = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    events = prof.events()
+    dev = sum(e.device_type == DeviceType.CUDA for e in events)
     top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    if device_top is not None:
+        # kernels named alike up to 100 characters count as one
+        per_kernel = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA:
+                key = e.name[:100]
+                per_kernel[key] = per_kernel.get(key, 0.0) \
+                    + e.time_range.elapsed_us()
+        for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            device_top[name] = round(us / 1e3 / runs, 3)
     return dev / runs, {e.key: round(e.self_cpu_time_total / 1e3 / runs, 3)
                         for e in top[:8]}
 
@@ -2009,7 +2058,313 @@ def phase_lm():
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: training
+# --------------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the block (the
+    scatter-adds of the MoE combine and the embedding's backward then sort
+    instead of using atomics)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def train_batch(cfg, seed=0, b=4, s=20):
+    """Seeded numpy inputs in the family's batch layout (f32 embeddings)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+    t = torch.from_numpy
+    if cfg.family == "encdec":
+        return {"src_embeds": t((rng.standard_normal((b, s, cfg.d_model))
+                                 * 0.05).astype(np.float32)),
+                "tgt_tokens": t(toks[:, :s // 2]),
+                "labels": t(toks[:, 1:s // 2 + 1])}
+    if cfg.modality == "vision_stub":
+        return {"embeds": t((rng.standard_normal((b, s, cfg.d_model))
+                             * 0.05).astype(np.float32)),
+                "labels": t(toks[:, 1:])}
+    return {"tokens": t(toks[:, :-1]), "labels": t(toks[:, 1:])}
+
+
+def to_device(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def loss_and_grads(params, cfg, batch, mesh=None):
+    """(loss, gradient of every parameter; zeros where it is unused)."""
+    from repro_torch.models import encdec, lm
+
+    mod = encdec if cfg.family == "encdec" else lm
+    plist = list(params.parameters())
+    loss, _ = mod.loss_fn(params, cfg, batch, mesh)
+    grads = torch.autograd.grad(loss, plist, allow_unused=True)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                                  for g, p in zip(grads, plist)]
+
+
+def master_bound_err(card, cpu, lr, opt_cfg):
+    """max over elements of |card - cpu| minus its bound after one AdamW
+    step: 1e-2 * lr, plus ``lr * |dg| / eps`` (how far ``g / (|g| + eps)``
+    moves when a near-zero gradient moves by dg; dg from the two mu's)."""
+    worst = -float("inf")
+    for name, m in card["master"].items():
+        dg = (card["mu"][name].cpu() - cpu["mu"][name]).abs() / (1 - opt_cfg.b1)
+        bound = 1e-2 * lr + lr * dg / opt_cfg.eps
+        err = (m.cpu() - cpu["master"][name]).abs()
+        worst = max(worst, float((err - bound).max()))
+    return worst
+
+
+def phase_train_reduced(arch):
+    """One reduced arch, f32, remat on: one make_train_step on the card
+    against the CPU, and remat on against off on the card."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.engine import Mesh
+    from repro_torch.launch import train
+    from repro_torch.optim import OptConfig, adamw_init
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat=True)
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    params, opt, step = train.build(cfg, Mesh(1, 1), opt_cfg,
+                                    dtype=torch.float32, device="cuda")
+    cpu = lm_on_cpu(params, cfg).requires_grad_(True)
+    cpu_opt = adamw_init(cpu)
+    batch = train_batch(cfg)
+    # remat on against off, on the card, before the step moves the weights
+    on_loss, on_g = loss_and_grads(params, cfg, to_device(batch, "cuda"))
+    off_loss, off_g = loss_and_grads(params, dataclasses.replace(
+        cfg, remat=False), to_device(batch, "cuda"))
+    remat_diff = max([abs(on_loss - off_loss)] + [
+        float((a - b).abs().max()) for a, b in zip(on_g, off_g)])
+    _, opt, m_card = step(params, opt, to_device(batch, "cuda"))
+    _, cpu_opt, m_cpu = step(cpu, cpu_opt, batch)
+    loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(
+        float(m_cpu["loss"]))
+    gnorm_err = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) \
+        / float(m_cpu["grad_norm"])
+    over = master_bound_err(opt, cpu_opt, float(m_cpu["lr"]), opt_cfg)
+    check(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL
+          and over <= 0.0,
+          f"{arch}: card vs CPU train step: loss {loss_err:.3e}, grad_norm "
+          f"{gnorm_err:.3e}, master over its bound by {over:.3e}")
+    return {"arch": arch, "loss_rel_err": loss_err, "gnorm_rel_err": gnorm_err,
+            "master_over_bound": over, "remat_on_vs_off_max_abs": remat_diff}
+
+
+def same_state(a_params, a_opt, b_params, b_opt):
+    """Every parameter and optimizer-state tensor bit-equal."""
+    if not all(torch.equal(x, y) for x, y in
+               zip(a_params.parameters(), b_params.parameters())):
+        return False
+    if not torch.equal(a_opt["step"], b_opt["step"]):
+        return False
+    return all(torch.equal(a_opt[k][n], b_opt[k][n])
+               for k in ("master", "mu", "nu") for n in a_opt[k])
+
+
+def phase_train_entry_reduced():
+    """The entry point reduced, with a fault at step 6 and without, under
+    deterministic algorithms: bit-equal final states, and the checkpoint
+    restored into a fresh model and state bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import Mesh
+    from repro_torch.launch import train
+    from repro_torch.optim import OptConfig
+
+    args = ["--arch", TRAIN_FULL, "--reduced", "--steps", "12",
+            "--ckpt-every", "4"]
+    with tempfile.TemporaryDirectory() as d, deterministic():
+        run = train.main(args + ["--inject-fault-at", "6",
+                                 "--ckpt-dir", os.path.join(d, "a")])
+        clean = train.main(args + ["--ckpt-dir", os.path.join(d, "b")])
+        losses = run.summary["losses"]
+        check(run.summary["restarts"] == 1 and clean.summary["restarts"] == 0,
+              f"restarts {run.summary['restarts']}, "
+              f"{clean.summary['restarts']} (expected 1, 0)")
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"reduced entry point losses {losses}")
+        tr, ctr = run.trainer, clean.trainer
+        check(same_state(tr.params, tr.opt_state, ctr.params, ctr.opt_state),
+              "the run with a fault and the clean run ended in different "
+              "states under deterministic algorithms")
+        fresh_p, fresh_o, _ = train.build(run.cfg, Mesh(1, 1), OptConfig(),
+                                          seed=3, device="cuda")
+        CheckpointManager(os.path.join(d, "a")).restore(
+            {"params": fresh_p, "opt": fresh_o})
+        check(same_state(fresh_p, fresh_o, tr.params, tr.opt_state),
+              "the reduced run's checkpoint did not restore bit for bit")
+    return losses
+
+
+def train_bound(params, cfg, B, S):
+    """The least time a training step could take (ms, "bytes" or
+    "operations"), and its bytes and FLOPs.
+
+    Bytes: the forward, the remat's recompute and the backward each read
+    the weights, the update writes them; the f32 gradients are written and
+    read; master, mu and nu are read and written in f32.  Activations are
+    left out (about 0.1 % here).  FLOPs: the blocks' products run three
+    times forward (forward, remat, the backward's two products count
+    double) = 4x, the unembedding 3x; a token's experts are its top-k
+    choices (as if no capacity slot dropped one); attention is causal."""
+    N = sum(p.numel() for p in params.parameters())
+    W = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_bytes = 4 * W + 8 * N + 24 * N
+    d, hd = cfg.d_model, cfg.hd
+    attn = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd \
+        + 2 * cfg.n_heads * hd * d + 2 * 2 * cfg.n_heads * hd * (S + 1) / 2
+    mult = 3 if cfg.activation == "swiglu" else 2
+    ffn = (cfg.top_k + cfg.n_shared_experts) * mult * 2 * d * cfg.d_ff \
+        + 2 * d * cfg.n_experts if cfg.family == "moe" \
+        else mult * 2 * d * cfg.d_ff
+    per_token = 4 * cfg.n_layers * (attn + ffn) + 3 * 2 * d * cfg.vocab
+    flops = B * S * per_token
+    ms, by = bound_ms(n_bytes, flops, BF16_OPS)
+    return ms, by, n_bytes, flops
+
+
+def phase_train_full():
+    """TRAIN_FULL at full width through ``main`` at its defaults; the
+    final checkpoint restored; a card vs CPU check in f32 at B = 1; the
+    figures of one step."""
+    from repro_torch.checkpoint import load_checkpoint, store
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Mesh
+    from repro_torch.launch import train
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import global_norm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    saves = []
+    save_checkpoint = store.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        path = save_checkpoint(*a, **kw)
+        saves.append(time.perf_counter() - t0)
+        return path
+
+    store.save_checkpoint = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            run = train.main(["--arch", TRAIN_FULL, "--steps",
+                              str(TRAIN_FULL_STEPS), "--ckpt-dir", d])
+            peak = torch.cuda.max_memory_allocated()
+            cfg, tr, losses = run.cfg, run.trainer, run.summary["losses"]
+            restarts = run.summary["restarts"]
+            run_s = time.perf_counter() - t_start
+            ln_v = math.log(cfg.vocab)
+            check(len(losses) == TRAIN_FULL_STEPS and all(
+                math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                and abs(losses[0] - ln_v) < 1.5,
+                f"{TRAIN_FULL}: losses {losses} (first near ln V = {ln_v:.3f})")
+            step_dir = os.path.join(d, f"step_{TRAIN_FULL_STEPS:08d}")
+            ckpt_bytes = sum(f.stat().st_size for f in Path(step_dir).iterdir())
+            disk = shutil.disk_usage(d)
+            fresh_p, fresh_o, _ = train.build(cfg, Mesh(1, 1), OptConfig(),
+                                              seed=1, device="cuda")
+            t0 = time.perf_counter()
+            load_checkpoint(d, {"params": fresh_p, "opt": fresh_o})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(same_state(fresh_p, fresh_o, tr.params, tr.opt_state),
+                  f"{TRAIN_FULL}: the final checkpoint did not restore bit "
+                  f"for bit")
+            del fresh_p, fresh_o
+    finally:
+        store.save_checkpoint = save_checkpoint
+    t_figures = time.perf_counter()
+    # the figures of one step, at main's batch (each call trains on)
+    B, S = 8, 128
+    batch = train.make_batches(cfg, B, S, "cuda")(0)
+
+    def step():
+        return tr.train_step(tr.params, tr.opt_state, batch)
+
+    dev_ms = device_ms(step, runs=TRAIN_PROFILED_STEPS, warm=1)
+    call_ms = median_ms(step, runs=TRAIN_TIMED_STEPS, warm=1)
+    device_top = {}
+    launches, host_top = lm_trace(step, device_top=device_top)
+    b_ms, b_by, n_bytes, flops = train_bound(tr.params, cfg, B, S)
+    n = sum(p.numel() for p in tr.params.parameters())
+    del run, tr, step, batch
+    torch.cuda.empty_cache()
+    # card vs CPU in f32 at B = 1, S = 16, the same weights
+    t0 = time.perf_counter()
+    figures_s = t0 - t_figures
+    params = lm_init(cfg).requires_grad_(True)
+    cpu = lm_on_cpu(params, cfg).requires_grad_(True)
+    batch = train_batch(cfg, seed=5, b=TRAIN_CPU_B, s=TRAIN_CPU_S)
+    card_loss, card_g = loss_and_grads(params, cfg, to_device(batch, "cuda"),
+                                       Mesh(1, 1))
+    card_gn = float(global_norm(card_g))
+    del card_g
+    cpu_loss, cpu_g = loss_and_grads(cpu, cfg, batch, Mesh(1, 1))
+    cpu_gn = float(global_norm(cpu_g))
+    del cpu_g, cpu, params
+    torch.cuda.empty_cache()
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    gnorm_err = abs(card_gn - cpu_gn) / cpu_gn
+    check(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL,
+          f"{TRAIN_FULL} f32 card vs CPU: loss {loss_err:.3e}, grad_norm "
+          f"{gnorm_err:.3e}")
+    return {"arch": TRAIN_FULL, "params": n, "dtype": "bfloat16",
+            "batch": B, "seq": S, "remat": cfg.remat, "peak_bytes": peak,
+            "step_device_ms": dev_ms, "step_call_ms": call_ms,
+            "tok_per_s": B * S / call_ms * 1e3,
+            "launches_per_step": launches, "host_top_ms_per_step": host_top,
+            "device_top_ms_per_step": device_top, "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": n_bytes,
+            "bound_flops": flops, "ckpt_bytes": ckpt_bytes,
+            "save_s": saves, "save_gb_per_s": [ckpt_bytes / 1e9 / x
+                                               for x in saves],
+            "restore_s": restore_s,
+            "restore_gb_per_s": ckpt_bytes / 1e9 / restore_s,
+            "disk_free_after_bytes": disk.free,
+            "restarts": restarts, "first_loss": losses[0],
+            "last_loss": losses[-1], "losses": losses,
+            "f32_card_vs_cpu": {"loss_rel_err": loss_err,
+                                "gnorm_rel_err": gnorm_err},
+            "seconds": {"main": run_s, "main_and_restore":
+                        t_figures - t_start, "figures": figures_s,
+                        "cpu_compare": cpu_s}}
+
+
+def phase_train():
+    """Phase 10: training; no hand-written kernel may launch."""
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    for arch in TRAIN_ARCHS:
+        row = phase_train_reduced(arch)
+        print("train reduced: " + json.dumps(row))
+    t1 = time.perf_counter()
+    losses = phase_train_entry_reduced()
+    t2 = time.perf_counter()
+    print(f"train entry point reduced: 1 restart, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, fault run bit-equal to the clean run, "
+          f"checkpoint restored bit for bit ({t1 - t0:.1f} s for the "
+          f"reduced archs, {t2 - t1:.1f} s for the entry point)")
+    print("train: " + json.dumps(phase_train_full()))
+    check(kernel_counts() == before,
+          f"a hand-written kernel launched during training: "
+          f"{before} -> {kernel_counts()}")
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s; no hand-written "
+          f"kernel launched")
+
+
 def main() -> int:
+    # cuBLAS's deterministic workspace setting (phase 10 turns on
+    # deterministic algorithms); it must be set before CUDA starts, and
+    # equals the default size on sm_90
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2042,6 +2397,7 @@ def main() -> int:
         phase_runtime()
         sharded_launches = phase_sharded(layers, rng, Engine, plans["f32"])
         phase_lm()
+        phase_train()
         kernels = kernel_line(entries, launches, main_err, sharded_launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

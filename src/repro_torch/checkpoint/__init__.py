@@ -1,9 +1,16 @@
-"""Manifest directories: named arrays + JSON metadata, atomic and crc-checked.
+"""Checkpoints: atomic, crc-checked manifest directories (the plan store
+sits on them) and tree checkpoints in the reference's files."""
 
-Only the manifest layer of ``repro.checkpoint`` is ported so far (the plan
-store sits on it); the tree checkpoints come with the training slice.
-"""
+from .store import (
+    CheckpointManager,
+    latest_step,
+    load_checkpoint,
+    manifest_exists,
+    read_manifest_dir,
+    save_checkpoint,
+    write_manifest_dir,
+)
 
-from .store import manifest_exists, read_manifest_dir, write_manifest_dir
-
-__all__ = ["manifest_exists", "read_manifest_dir", "write_manifest_dir"]
+__all__ = ["CheckpointManager", "latest_step", "load_checkpoint",
+           "manifest_exists", "read_manifest_dir", "save_checkpoint",
+           "write_manifest_dir"]

@@ -1,4 +1,4 @@
-"""The manifest layer of ``repro.checkpoint.store``, without JAX or ml_dtypes.
+"""Checkpoints: ``repro.checkpoint.store`` without JAX or ml_dtypes.
 
 A *manifest directory* is a directory of ``.npy`` files plus a
 ``manifest.json`` recording name/file/shape/dtype/crc32 per array and
@@ -13,6 +13,22 @@ dtype (``"bfloat16"``, ``"float8_e4m3fn"``, ``"float8_e5m2"``) in the
 manifest; here they travel as their raw bits, in the unsigned integer of the
 same width, and the writer takes their logical dtype in a side mapping
 (``dtypes``).  The reader hands them back as raw bits too.
+
+On top of it sit the tree checkpoints (``save_checkpoint``,
+``load_checkpoint``, ``CheckpointManager``), in the reference's files: a
+tree is saved in the reference's layout (``convert.reference_layout``: an
+``nn.Module`` or a mapping of ``state_dict`` names becomes the reference's
+nested tree, layers stacked on a leading axis), its leaves in
+``jax.tree_util`` order (dict keys sorted) under the same ``keystr`` paths,
+bf16 leaves as raw bits.  So a checkpoint either package writes, the other
+restores.  Restoring copies into the tensors of ``tree_like`` (a module's
+parameters, an optimizer state's tensors) in place, on their devices.
+
+Layout of one checkpoint:
+
+    <dir>/step_<N>/
+        manifest.json          # tree structure, shapes, dtypes, leaf files, crc
+        leaf_00000.npy ...     # one .npy per leaf (host-local full arrays)
 """
 
 from __future__ import annotations
@@ -20,10 +36,15 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import zlib
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
+from torch import nn
+
+from ..convert import Stacked, reference_layout
 
 #: logical name of each narrow float dtype -> the numpy type of its raw bits
 NARROW_DTYPES = {
@@ -118,3 +139,244 @@ def read_manifest_dir(path: str, verify: bool = True
 
 def manifest_exists(path: str) -> bool:
     return os.path.exists(os.path.join(path, "manifest.json"))
+
+
+# --------------------------------------------------------------------------- #
+# tree checkpoints
+# --------------------------------------------------------------------------- #
+
+#: torch's narrow float dtypes -> their logical names (keys of NARROW_DTYPES)
+_TORCH_NARROW = {
+    torch.bfloat16: "bfloat16",
+    torch.float8_e4m3fn: "float8_e4m3fn",
+    torch.float8_e5m2: "float8_e5m2",
+}
+_NARROW_TORCH = {name: dt for dt, name in _TORCH_NARROW.items()}
+
+
+def _layout(tree):
+    """The reference's layout of a tree: a module or a mapping with dotted
+    (``state_dict``) names goes through ``reference_layout``; other
+    mappings recurse; anything else is a leaf."""
+    if isinstance(tree, nn.Module):
+        return reference_layout(dict(tree.named_parameters()))
+    if isinstance(tree, Mapping):
+        if any("." in str(k) for k in tree):
+            return reference_layout(tree)
+        return {k: _layout(v) for k, v in tree.items()}
+    return tree
+
+
+def _flatten(tree) -> List[Tuple[str, Any]]:
+    """``(keystr path, leaf)`` in ``jax.tree_util`` order: dict keys
+    sorted, None an empty subtree; a ``Stacked`` list is one leaf."""
+    out: List[Tuple[str, Any]] = []
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        elif node is not None:
+            out.append((path, node))
+
+    walk(_layout(tree), "")
+    return out
+
+
+def _tree_paths(tree) -> List[str]:
+    return [path for path, _ in _flatten(tree)]
+
+
+def _host(leaf, snapshot: bool):
+    """A leaf on the host: a CPU tensor for tensors (a ``Stacked`` leaf
+    stacked into one), else a numpy array.  ``snapshot`` copies even what
+    is already on the host, so later in-place updates cannot reach it."""
+    if isinstance(leaf, Stacked):
+        out = torch.empty((len(leaf),) + tuple(leaf[0].shape),
+                          dtype=leaf[0].dtype)
+        for i, x in enumerate(leaf):
+            out[i].copy_(x.detach())
+        return out
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=snapshot)
+    return np.array(leaf) if snapshot else np.asarray(leaf)
+
+
+def _host_tree(tree) -> Dict:
+    """A snapshot of ``tree`` on the host, in the reference's layout."""
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        return None if node is None else _host(node, snapshot=True)
+
+    return walk(_layout(tree))
+
+
+def _to_disk(arr) -> Tuple[np.ndarray, Optional[str]]:
+    """(numpy array, logical dtype of raw bits or None) of a host leaf."""
+    if isinstance(arr, torch.Tensor):
+        name = _TORCH_NARROW.get(arr.dtype)
+        if name is not None:
+            bits = torch.int16 if arr.element_size() == 2 else torch.uint8
+            return arr.view(bits).numpy().view(NARROW_DTYPES[name]), name
+        return arr.numpy(), None
+    return np.asarray(arr), None
+
+
+def _manifest_dtypes(path: str) -> Dict[str, str]:
+    """Each array's logical dtype, as its manifest records it."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    if "arrays" in manifest:
+        return {rec["name"]: rec["dtype"] for rec in manifest["arrays"]}
+    return {rec["file"][:-len(".npy")]: rec["dtype"]
+            for rec in manifest["leaves"]}
+
+
+def _from_disk(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A loaded array as a CPU tensor of its logical dtype."""
+    if dtype in _NARROW_TORCH:
+        bits = np.int16 if arr.dtype.itemsize == 2 else np.uint8
+        return torch.from_numpy(arr.view(bits)).view(_NARROW_TORCH[dtype])
+    return torch.from_numpy(arr)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any,
+                    extra: Optional[Dict] = None) -> str:
+    """Blocking atomic save.  Returns the final checkpoint path."""
+    leaves = _flatten(tree)
+    final = os.path.join(directory, f"step_{step:08d}")
+    arrays, dtypes = {}, {}
+    for i, (_, leaf) in enumerate(leaves):
+        arr, dtype = _to_disk(_host(leaf, snapshot=False))
+        arrays[f"leaf_{i:05d}"] = arr
+        if dtype is not None:
+            dtypes[f"leaf_{i:05d}"] = dtype
+    meta = {"step": step, "n_leaves": len(leaves),
+            "paths": [path for path, _ in leaves], "extra": extra or {}}
+    return write_manifest_dir(final, arrays, meta, dtypes=dtypes)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            if manifest_exists(os.path.join(directory, name)):
+                steps.append(int(name[5:]))
+    return max(steps) if steps else None
+
+
+def _leaf_shape(leaf) -> Tuple[int, ...]:
+    if isinstance(leaf, Stacked):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return tuple(leaf.shape)
+
+
+@torch.no_grad()
+def load_checkpoint(directory: str, tree_like: Any, step: Optional[int] = None,
+                    target_shardings: Any = None, verify: bool = True) -> Any:
+    """Load into ``tree_like`` and return it.
+
+    Its leaves must be tensors (a module's parameters, an optimizer state's
+    tensors): each receives the checkpoint's values in place, on its own
+    device, as ``load_state_dict`` does.  The leaf count, every path,
+    shape and dtype must match the file's.  ``target_shardings`` (the
+    reference's re-sharding onto a mesh) must be None: one device."""
+    if target_shardings is not None:
+        raise NotImplementedError(
+            "target_shardings re-shards onto a mesh; one device only")
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    path = os.path.join(directory, f"step_{step:08d}")
+    arrays, meta = read_manifest_dir(path, verify=verify)
+    dtypes = _manifest_dtypes(path)
+    leaves = _flatten(tree_like)
+    if meta["n_leaves"] != len(leaves):
+        raise ValueError(
+            f"checkpoint has {meta['n_leaves']} leaves, expected {len(leaves)}")
+    for i, ((tree_path, like), file_path) in enumerate(
+            zip(leaves, meta["paths"])):
+        if tree_path != file_path:
+            raise ValueError(f"leaf {i} is {file_path} in the checkpoint, "
+                             f"{tree_path} in the tree")
+        targets = like if isinstance(like, Stacked) else [like]
+        if not all(isinstance(t, torch.Tensor) for t in targets):
+            raise TypeError(f"{tree_path}: restores into tensors only, got "
+                            f"{type(targets[0]).__name__}")
+        name = f"leaf_{i:05d}"
+        arr = arrays[name]
+        if tuple(arr.shape) != _leaf_shape(like):
+            raise ValueError(f"shape mismatch for {tree_path}: {arr.shape} "
+                             f"vs {_leaf_shape(like)}")
+        value = _from_disk(arr, dtypes[name])
+        if value.dtype != targets[0].dtype:
+            raise ValueError(f"dtype mismatch for {tree_path}: "
+                             f"{dtypes[name]} vs {targets[0].dtype}")
+        if isinstance(like, Stacked):
+            for t, v in zip(like, value):
+                t.copy_(v)
+        else:
+            like.copy_(value)
+    return tree_like
+
+
+class CheckpointManager:
+    """Async single-writer checkpoint manager with retention."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        os.makedirs(directory, exist_ok=True)
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def async_save(self, step: int, tree: Any, extra: Optional[Dict] = None):
+        """The copy to the host happens on the caller's thread (a
+        consistent snapshot); file I/O runs in the background."""
+        self.wait()
+        host_tree = _host_tree(tree)
+
+        def work():
+            try:
+                save_checkpoint(self.directory, step, host_tree, extra)
+                self._gc()
+            except BaseException as e:  # noqa: BLE001 — re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> str:
+        self.wait()
+        p = save_checkpoint(self.directory, step, tree, extra)
+        self._gc()
+        return p
+
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                target_shardings: Any = None) -> Any:
+        self.wait()
+        return load_checkpoint(self.directory, tree_like, step,
+                               target_shardings)
+
+    def latest_step(self) -> Optional[int]:
+        return latest_step(self.directory)
+
+    def _gc(self):
+        steps = sorted(
+            int(n[5:]) for n in os.listdir(self.directory)
+            if n.startswith("step_") and not n.endswith(".tmp"))
+        for s in steps[: -self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)

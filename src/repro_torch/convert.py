@@ -11,12 +11,16 @@ once and keep the returned list, rather than converting again per compile.
 
 ``lm_params_from_numpy`` takes a language model's parameter tree (``lm`` or
 ``encdec``) as nested dicts of numpy arrays and returns the port's module
-holding those weights.
+holding those weights; ``lm_params_to_numpy`` is its inverse.
+``opt_state_to_numpy`` / ``opt_state_from_numpy`` do the same for an
+optimizer state.  ``reference_layout`` is the shared rule: ``state_dict``
+names become the reference's nested tree, per-layer tensors stacked on a
+leading ``[L, ...]`` axis.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,3 +82,87 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Dict,
     model = cls(cfg, device=device, dtype=state["embed"].dtype)
     model.load_state_dict(state, strict=True)
     return model
+
+
+class Stacked(list):
+    """Per-layer tensors that the reference keeps as one leaf, stacked on a
+    leading ``[L, ...]`` axis (layer ``i`` at index ``i``)."""
+
+
+def reference_layout(named: Mapping[str, Any]) -> Dict:
+    """``state_dict`` names -> the reference's nested tree.
+
+    ``layers.3.attn.wq`` lands at ``tree["layers"]["attn"]["wq"][3]``, a
+    ``Stacked`` leaf (likewise ``enc_layers`` and ``dec_layers``); every
+    other dotted name nests (``shared_attn.attn.wq``).  Names must come in
+    layer order, as ``named_parameters`` gives them."""
+    tree: Dict = {}
+    for name, val in named.items():
+        parts = name.split(".")
+        node = tree
+        if parts[0] in _STACKED:
+            key, idx, rest = parts[0], int(parts[1]), parts[2:]
+            node = node.setdefault(key, {})
+            for part in rest[:-1]:
+                node = node.setdefault(part, {})
+            stack = node.setdefault(rest[-1], Stacked())
+            if len(stack) != idx:
+                raise ValueError(f"{name}: layer {idx} after {len(stack)} "
+                                 f"layers of {'.'.join([key] + rest)}")
+            stack.append(val)
+        else:
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = val
+    return tree
+
+
+def _numpy(leaf) -> np.ndarray:
+    """A host f32/int copy of a leaf (bf16 widens to f32 exactly)."""
+    if isinstance(leaf, Stacked):
+        return np.stack([_numpy(x) for x in leaf])
+    t = leaf.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy().copy()
+
+
+def _numpy_tree(tree: Dict) -> Dict:
+    return {k: _numpy_tree(v) if isinstance(v, dict) else _numpy(v)
+            for k, v in tree.items()}
+
+
+def named_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict:
+    """Tensors keyed by ``state_dict`` names (parameters, gradients, one of
+    an optimizer state's trees) as the reference's tree of numpy arrays.
+    numpy has no bfloat16, so bf16 leaves come back as float32
+    (exactly)."""
+    return _numpy_tree(reference_layout(named))
+
+
+def lm_params_to_numpy(model) -> Dict:
+    """The inverse of ``lm_params_from_numpy``: the module's parameters as
+    the reference's tree of numpy arrays (layers stacked, ``shared_attn``,
+    ``enc_layers`` / ``dec_layers``; bf16 as float32)."""
+    return named_to_numpy(dict(model.named_parameters()))
+
+
+def opt_state_to_numpy(state: Mapping[str, Any]) -> Dict:
+    """An ``adamw_init`` state as the reference's: ``master``, ``mu`` and
+    ``nu`` trees in its layout, ``step`` an int32 scalar array."""
+    out = {key: named_to_numpy(state[key]) for key in ("master", "mu", "nu")}
+    out["step"] = np.asarray(int(state["step"]), dtype=np.int32)
+    return out
+
+
+def opt_state_from_numpy(tree: Mapping[str, Any],
+                         device: Union[str, torch.device] = "cuda") -> Dict:
+    """The reference's optimizer state (numpy leaves) as the port's:
+    ``master``, ``mu`` and ``nu`` keyed by ``state_dict`` names, ``step``
+    an int32 scalar tensor, all on ``device``."""
+    out = {key: {name: torch.tensor(arr, device=device)
+                 for name, arr in _state_items(tree[key])}
+           for key in ("master", "mu", "nu")}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=device)
+    return out

@@ -1,5 +1,5 @@
 """Model zoo: dense/MoE/SSM/hybrid decoder LMs + encoder-decoder (port of
-``repro.models``, serving half)."""
+``repro.models``: serving and training on one device)."""
 
 from . import encdec, lm
 from .config import (

@@ -1,10 +1,12 @@
 """Encoder-decoder transformer (seamless-m4t backbone).
 
-Port of ``repro.models.encdec`` (serving half).  The speech/text frontend is
-a stub: the encoder consumes precomputed frame embeddings [B, S_src, d].
-The decoder is a causal transformer with cross-attention; ``decode_step``
-runs one target token against a self-attention KV cache plus the
-precomputed cross-attention cache.  The loss waits for the training slice.
+Port of ``repro.models.encdec``.  The speech/text frontend is a stub: the
+encoder consumes precomputed frame embeddings [B, S_src, d].  The decoder
+is a causal transformer with cross-attention; ``decode_step`` runs one
+target token against a self-attention KV cache plus the precomputed
+cross-attention cache.  In training with ``cfg.remat`` each encoder and
+decoder layer is recomputed in the backward pass, as the reference's
+``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from torch import nn
 from .common import dense_init_, param, rms_norm
 from .config import ModelConfig
 from .layers import MLP, Attention, attention, make_cache, mlp
-from .lm import AttnBlock, _index, _logits, _positions, _stack, _stacked, unembed_matrix
+from .lm import (AttnBlock, _index, _logits, _maybe_remat, _positions, _stack,
+                 _stacked, lm_loss_from_h, unembed_matrix)
 
 
 class DecBlock(nn.Module):
@@ -75,15 +78,21 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     return model
 
 
-def encode(params: EncDec, cfg: ModelConfig, src_embeds: torch.Tensor):
+def encode(params: EncDec, cfg: ModelConfig, src_embeds: torch.Tensor,
+           train: bool = False):
     B, S = src_embeds.shape[:2]
     positions = _positions(B, S, src_embeds.device)
+
+    def body(p, hh):
+        a, _ = attention(p.attn, rms_norm(hh, p.ln1, cfg.norm_eps),
+                         positions, cfg, causal=False)
+        hh = hh + a
+        return hh + mlp(p.mlp, rms_norm(hh, p.ln2, cfg.norm_eps), cfg)
+
+    body = _maybe_remat(body, cfg, train)
     h = src_embeds
     for p in params.enc_layers:
-        a, _ = attention(p.attn, rms_norm(h, p.ln1, cfg.norm_eps),
-                         positions, cfg, causal=False)
-        h = h + a
-        h = h + mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+        h = body(p, h)
     return rms_norm(h, params.enc_norm, cfg.norm_eps)
 
 
@@ -100,14 +109,26 @@ def _dec_block(p: DecBlock, h, positions, enc_out, cfg: ModelConfig,
     return h, new_self, new_cross
 
 
-def decode_train(params: EncDec, cfg: ModelConfig, enc_out, tgt_tokens):
+def decode_train(params: EncDec, cfg: ModelConfig, enc_out, tgt_tokens,
+                 train: bool = False):
     """Teacher-forced decoder over the whole target: final-normed h."""
     B, S = tgt_tokens.shape
     positions = _positions(B, S, enc_out.device)
+    body = _maybe_remat(
+        lambda p, hh: _dec_block(p, hh, positions, enc_out, cfg)[0], cfg, train)
     h = params.embed[tgt_tokens.long()]
     for p in params.dec_layers:
-        h, _, _ = _dec_block(p, h, positions, enc_out, cfg)
+        h = body(p, h)
     return rms_norm(h, params.final_norm, cfg.norm_eps)
+
+
+def loss_fn(params: EncDec, cfg: ModelConfig, batch: Dict, mesh=None):
+    """batch: {"src_embeds": [B,Ss,d], "tgt_tokens": [B,St], "labels": [B,St]}.
+    Returns (ce, {"ce", "aux" = 0})."""
+    enc_out = encode(params, cfg, batch["src_embeds"], train=True)
+    h = decode_train(params, cfg, enc_out, batch["tgt_tokens"], train=True)
+    ce = lm_loss_from_h(params, cfg, h, batch["labels"])
+    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
 def make_dec_caches(params: EncDec, cfg: ModelConfig, enc_out, window: int,
@@ -142,4 +163,4 @@ def decode_step(params: EncDec, cfg: ModelConfig, tokens, caches: Dict,
 
 
 __all__ = ["DecBlock", "EncDec", "decode_step", "decode_train", "encode",
-           "init", "make_dec_caches", "unembed_matrix"]
+           "init", "loss_fn", "make_dec_caches", "unembed_matrix"]

@@ -1,11 +1,13 @@
 """Decoder-only LM assembly for all four families: dense, moe, ssm, hybrid.
 
-Port of ``repro.models.lm`` (serving half).  Layers live in an
-``nn.ModuleList`` and run in a Python loop where the reference scans over
-stacked parameters.  The hybrid (zamba2) family runs groups of
-``attn_period`` Mamba2 layers, each group followed by one application of a
-single *shared* attention+MLP block, then the ``n_layers % attn_period``
-tail layers.
+Port of ``repro.models.lm``.  Layers live in an ``nn.ModuleList`` and
+run in a Python loop where the reference scans over stacked parameters.
+The hybrid (zamba2) family runs groups of ``attn_period`` Mamba2 layers,
+each group followed by one application of a single *shared* attention+MLP
+block, then the ``n_layers % attn_period`` tail layers.  In training with
+``cfg.remat``, each unit the reference wraps in ``jax.checkpoint`` (one
+dense or MoE block, one SSM layer, the hybrid's group and each tail layer)
+runs under ``torch.utils.checkpoint``.
 
 Caches keep the reference's stacked layouts, so they compare directly:
 ``{"attn": {"k", "v": [L, B, S, K, hd], "pos": [L]}}`` (dense, moe),
@@ -15,18 +17,19 @@ and ``{"ssm_main": [G, P, ...], "ssm_tail": [tail, ...] or None,
 
 Entry points (the reference's, with the module in place of ``params``):
   init(generator, cfg)                     -> LM on the generator's device
-  forward(params, cfg, tokens|embeds)      -> (h, aux)
+  forward(params, cfg, tokens|embeds, train) -> (h, aux)
+  loss_fn(params, cfg, batch, mesh)        -> (loss, metrics)
   prefill(params, cfg, tokens|embeds)      -> (last-token logits, caches)
   decode_step(params, cfg, token, caches, mesh) -> (logits, caches)
-The loss waits for the training slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .common import dense_init_, param, rms_norm
 from .config import ModelConfig
@@ -178,25 +181,45 @@ def embed_tokens(params: LM, tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens.long()]
 
 
-def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None):
+def _maybe_remat(fn: Callable, cfg: ModelConfig, train: bool) -> Callable:
+    """``fn`` recomputed in the backward pass when training with remat (the
+    reference's ``jax.checkpoint``)."""
+    if train and cfg.remat:
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return fn
+
+
+def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None,
+            train: bool = False):
     """Full-sequence forward (no caches): (final-normed h [B, S, d], aux)."""
     h = embed_tokens(params, tokens) if embeds is None else embeds
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)
     aux = torch.zeros((), device=h.device)
+    layer = _maybe_remat(lambda p, hh: _ssm_layer(p, hh, cfg)[0], cfg, train)
     if cfg.family in ("dense", "moe"):
+        block = _maybe_remat(
+            lambda p, hh: _dense_block(p, hh, positions, cfg, mesh)[:2],
+            cfg, train)
         for p in params.layers:
-            h, a, _ = _dense_block(p, h, positions, cfg, mesh)
+            h, a = block(p, h)
             aux = aux + a
     elif cfg.family == "ssm":
         for p in params.layers:
-            h = _ssm_layer(p, h, cfg)[0]
+            h = layer(p, h)
     else:
-        G, P, _ = _groups(cfg)
-        for i, p in enumerate(params.layers):
-            h = _ssm_layer(p, h, cfg)[0]
-            if i < G * P and i % P == P - 1:
-                h = _shared_attn_block(params.shared_attn, h, positions, cfg)[0]
+        G, P, tail = _groups(cfg)
+
+        def group(g, hh):
+            for j in range(P):
+                hh = _ssm_layer(params.layers[g * P + j], hh, cfg)[0]
+            return _shared_attn_block(params.shared_attn, hh, positions, cfg)[0]
+
+        group = _maybe_remat(group, cfg, train)
+        for g in range(G):
+            h = group(g, h)
+        for j in range(tail):
+            h = layer(params.layers[G * P + j], h)
     return rms_norm(h, params.final_norm, cfg.norm_eps), aux
 
 
@@ -209,6 +232,26 @@ def unembed_matrix(params) -> torch.Tensor:
 def _logits(params, h) -> torch.Tensor:
     """f32 logits of h [..., d] (the reference's f32-accumulated product)."""
     return torch.matmul(h.float(), unembed_matrix(params).float())
+
+
+def lm_loss_from_h(params, cfg: ModelConfig, h, labels) -> torch.Tensor:
+    """Mean cross entropy: logsumexp of the f32 logits minus the label's
+    logit, taken from the label's unembedding row (no gather on the
+    [B, S, V] logits), as the reference computes it."""
+    W = unembed_matrix(params)                         # [d, V]
+    lse = torch.logsumexp(_logits(params, h), dim=-1)  # [B, S]
+    rows = W.T[labels.long()]                          # [B, S, d]
+    label_logit = (h.float() * rows.float()).sum(-1)
+    return (lse - label_logit).mean()
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict, mesh=None):
+    """batch: {"tokens": [B,S]} or {"embeds": [B,S,d]}, with {"labels": [B,S]}.
+    Returns (ce + 0.01 * aux, {"ce", "aux"})."""
+    h, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                     embeds=batch.get("embeds"), mesh=mesh, train=True)
+    ce = lm_loss_from_h(params, cfg, h, batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # =============================================================================

@@ -1,0 +1,3 @@
+from .adamw import OptConfig, adamw_init, adamw_update
+
+__all__ = ["OptConfig", "adamw_init", "adamw_update"]

@@ -4,8 +4,10 @@
 ``repro_torch.serving.{resilience,http}`` are verbatim copies of the
 reference's modules, so the Theorem-1 order, Connection Reordering at a
 given seed, ``simulate``, ``theorem1_bounds``, the resilience machinery, the
-front door and the Prometheus exposition agree by construction; the port
-imports neither ``jax`` nor ``ml_dtypes`` nor anything of ``repro``.
+front door and the Prometheus exposition agree by construction; the model
+config, the architecture registry, the data pipeline's classes and the
+fault-tolerance module are copies whose only changes are import lines; the
+port imports neither ``jax`` nor ``ml_dtypes`` nor anything of ``repro``.
 """
 
 import os
@@ -55,6 +57,39 @@ def test_copy_differs_only_in_import_lines(rel):
         assert b == a.replace("repro.", "repro_torch.", 1), (a, b)
 
 
+# copies whose imports differ (the reference's name jax or repro), with the
+# last line of the copied part: the data pipeline's numpy classes (its
+# ``sharded_batches`` is the port's own) and the fault-tolerance module
+CODE_COPIES = {"data/pipeline.py": "def sharded_batches(",
+               "runtime/failure.py": None}
+
+
+def _code_lines(path, until):
+    """The lines after the module docstring, without import lines, up to
+    (not including) the first line that starts with ``until``."""
+    text = path.read_text()
+    body = text[text.index('"""', 3) + 3:].splitlines()
+    if until is not None:
+        body = body[:next(i for i, line in enumerate(body)
+                          if line.startswith(until))]
+    return [line for line in body
+            if not line.startswith(("import ", "from "))]
+
+
+@pytest.mark.parametrize("rel", sorted(CODE_COPIES))
+def test_copy_differs_only_in_imports(rel):
+    """Every line of the copied part equal to the reference's, apart from
+    the import lines; the port's import neither jax nor repro."""
+    until = CODE_COPIES[rel]
+    assert _code_lines(ROOT / "src" / "repro_torch" / rel, until) == \
+        _code_lines(ROOT / "src" / "repro" / rel, until)
+    imports = [line for line in
+               (ROOT / "src" / "repro_torch" / rel).read_text().splitlines()
+               if line.startswith(("import ", "from "))]
+    assert imports and not any(
+        line.split()[1].split(".")[0] in ("jax", "repro") for line in imports)
+
+
 def test_import_leaves_out_jax_and_repro():
     """Importing every port module, and chip_smoke.py, loads no jax and no
     module of the reference package."""
@@ -65,7 +100,8 @@ def test_import_leaves_out_jax_and_repro():
         "import repro_torch.obs, repro_torch.checkpoint\n"
         "import repro_torch.serving, repro_torch.serving.plancache\n"
         "import repro_torch.models, repro_torch.configs\n"
-        "import repro_torch.launch.steps\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.runtime, repro_torch.data\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', "
         f"{str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
