@@ -113,7 +113,26 @@ Phases, each of which must pass (any failure exits non-zero):
      ``train:`` JSON line with the parameter count, peak memory, the step's
      device and call time, tokens/s, launches and host ops per step, its
      bound, the checkpoint's save and restore time; every kernel launch
-     counter must be unchanged across the phase.
+     counter must be unchanged across the phase;
+ 11. training on a ``data x model`` mesh, one process per mesh slot (no
+     hand-written kernel on its path): which collectives this torch's
+     ``gloo`` takes on CUDA tensors (two ranks on the card); then four
+     ranks on the card at 2x2, reduced, f32: one step per family against
+     the one-device step on the card from the same weights and batch (loss
+     within 1e-5, ``grad_norm`` within 1e-4, the new master within Adam's
+     bound; for the MoE, whose aux loss is a per-shard estimator, ce and
+     its gradient norm, and the loss differing by 0.01 x the aux losses'
+     difference), ``moe_a2a`` against the dense dispatch, the ring matmul
+     and ``quantized_psum``; granite-moe-1b-a400m at full width through
+     ``main --data-mesh 2 --model-mesh 2`` at its defaults (finite and
+     falling losses, the first near ln(vocab)), its last checkpoint
+     resharded onto 2x1 by two processes and held against the files bit
+     for bit; the figures of a full-width 2x2 step per rank (call time
+     from ``main``, device time from a trace, collectives, peak memory);
+     in f32 at B = 2, S = 16 with
+     no-drop capacity, ce and its gradient norm at 2x2 against one device;
+     and a ``mesh train:`` JSON line; no kernel launch counter may move in
+     any rank.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the ``kernels``
@@ -125,6 +144,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -194,6 +214,16 @@ TRAIN_CPU_B, TRAIN_CPU_S = 1, 16
 # trace processing: device_ms traces one step (after one warm-up step), so
 # its whole-number-per-call check never retries
 TRAIN_TIMED_STEPS, TRAIN_PROFILED_STEPS = 5, 1
+# phase 11: the mesh; one step per family at 2x2 (reduced), then
+# TRAIN_FULL at full width: the f32 check's batch; the collectives the
+# probe tries on CUDA tensors
+MESH_ARCHS = ("codeqwen1.5-7b", "granite-moe-1b-a400m", "mamba2-1.3b",
+              "zamba2-1.2b", "seamless-m4t-medium")
+MESH_F32_B, MESH_F32_S = 2, 16
+MESH_PROBES = ("all_reduce f32", "all_reduce bf16", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single",
+               "batch_isend_irecv")
+MESH_PROBE_WAIT_S = 60
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 BF16_OPS = 989e12
@@ -2360,6 +2390,527 @@ def phase_train():
           f"kernel launched")
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: training on a data x model mesh, one process per mesh slot
+# --------------------------------------------------------------------------- #
+
+def _probe_rank(rank, device, names, out):
+    """Which of ``names`` this torch's gloo takes on CUDA tensors (each
+    tried once, directly; what it refuses is recorded, not worked round)."""
+    import torch.distributed as dist
+
+    took = {}
+    for name in names:
+        dt = torch.bfloat16 if name.endswith("bf16") else torch.float32
+        x = torch.ones(8, dtype=dt, device=device)
+        try:
+            if name.startswith("all_reduce"):
+                dist.all_reduce(x)
+            elif name == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(torch.empty(16, device=device), x)
+            elif name == "reduce_scatter_tensor":
+                dist.reduce_scatter_tensor(torch.empty(4, device=device), x)
+            elif name == "all_to_all_single":
+                dist.all_to_all_single(torch.empty_like(x), x)
+            else:
+                reqs = dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, (rank + 1) % 2),
+                    dist.P2POp(dist.irecv, torch.empty_like(x),
+                               (rank + 1) % 2)])
+                for req in reqs:
+                    req.wait(datetime.timedelta(seconds=MESH_PROBE_WAIT_S))
+            torch.cuda.synchronize()
+            took[name] = True
+        except Exception as e:  # noqa: BLE001 — the probe records refusals
+            took[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(took, f)
+
+
+def phase_mesh_probe():
+    """Which collectives gloo takes on CUDA tensors, in two ranks on the
+    card: the ones ``models.sharding.GLOO_CUDA`` hands it directly in one
+    world (each must take), every other one in a world of its own.  gloo's
+    TCP transport reads a CUDA tensor's device pointer as host memory;
+    the failing ``writev`` is raised in the caller or, when gloo's own
+    thread writes, aborts the rank, so a dead world is recorded as that
+    op's refusal."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models.sharding import GLOO_CUDA
+
+    direct = [n for n in MESH_PROBES if n.split()[0] in GLOO_CUDA]
+    worlds = [direct] + [[n] for n in MESH_PROBES if n not in direct]
+    took = {}
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "probe.json")
+        for names in worlds:
+            try:
+                backend = run_world(_probe_rank, 2, "cuda", names, out)
+            except mp.ProcessExitedException as e:
+                if names is direct:
+                    raise SmokeFailure(f"the gloo probe of {names} died: {e}")
+                took[names[0]] = f"rank {e.error_index} died: {e}"
+                continue
+            with open(out) as f:
+                took.update(json.load(f))
+            os.remove(out)
+    print(f"mesh: {backend} on CUDA tensors (2 ranks on one card) takes "
+          f"{json.dumps(took)}")
+    check(all(took[n] is True for n in direct),
+          f"gloo refuses a collective GLOO_CUDA hands it: {took}")
+    return took
+
+
+def _mesh_data(mesh):
+    """(data axes with more than one slot, their size)."""
+    from repro_torch.launch.mesh import dp_axes, dp_size
+
+    return [a for a in dp_axes(mesh) if mesh.axis_size(a) > 1], dp_size(mesh)
+
+
+def ce_figures(params, cfg, batch, mesh=None):
+    """(ce, aux, norm of the gradient of ce alone) of one batch, over the
+    global batch on a mesh: the step's loss minus the aux loss, whose
+    per-shard estimator (as the reference's a2a) differs from one
+    device's."""
+    from repro_torch.launch import partition, specs
+    from repro_torch.models import encdec, lm
+    from repro_torch.models.sharding import reduce_
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import global_norm
+
+    mod = encdec if cfg.family == "encdec" else lm
+    named = dict(params.named_parameters())
+    _, met = mod.loss_fn(params, cfg, batch, mesh)
+    gs = torch.autograd.grad(met["ce"], list(named.values()),
+                             allow_unused=True)
+    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             if g is None else g.float() for (n, p), g in zip(named.items(),
+                                                              gs)}
+    ce, aux = met["ce"].detach(), met["aux"].detach()
+    if mesh is None or mesh.size == 1:
+        return float(ce), float(aux), float(global_norm(grads))
+    dpa, dsz = _mesh_data(mesh)
+    shape = specs.params_shape(cfg)
+    o_specs = partition.opt_specs(mesh, adamw_init(shape),
+                                  partition.params_specs(mesh, shape))
+    o_specs = o_specs["master"]
+    grads = partition.reduce_named(grads, o_specs, mesh, dpa)
+    grads = {n: g / dsz for n, g in grads.items()}
+    for a in dpa:
+        ce, aux = reduce_(ce, mesh, a), reduce_(aux, mesh, a)
+    return (float(ce) / dsz, float(aux) / dsz,
+            float(global_norm(grads, mesh, o_specs)))
+
+
+def no_drop(cfg):
+    """A MoE config with capacity for every token (capacity factor = the
+    expert count): a mesh's per-shard capacity then drops nothing that one
+    device keeps, so the two compute the same function."""
+    if cfg.family != "moe":
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+
+
+def _local_rows(batch, mesh, device):
+    from repro_torch.launch import partition
+
+    specs = partition.batch_specs(mesh, batch)
+    return {k: partition.local_shard(v, specs[k], mesh).to(device)
+            for k, v in batch.items()}
+
+
+def _mesh_reduced_rank(rank, device, d):
+    """Rank ``rank`` of the reduced 2x2 checks: one step per family from
+    the parent's weights and batch, moe_a2a, the ring and quantized_psum;
+    every hand-written kernel's counter unchanged."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import partition
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import encdec, layers, lm
+    from repro_torch.models.sharding import STATS
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.runtime import quantized_psum, ring_ag_matmul
+    from repro_torch.launch import specs as lspecs
+
+    before = kernel_counts()
+    mesh = make_test_mesh(2, 2).bind()
+    res = {}
+    for arch in MESH_ARCHS:
+        cfg = no_drop(reduced(get_config(arch)))
+        data = torch.load(os.path.join(d, f"{arch}.pt"))
+        cls = encdec.EncDec if cfg.family == "encdec" else lm.LM
+        model = cls(cfg, device=device, dtype=torch.float32)
+        model.load_state_dict(data["state"])
+        p_specs = partition.params_specs(mesh, model)
+        partition.shard_module(model.requires_grad_(True), p_specs, mesh)
+        o_specs = partition.opt_specs(
+            mesh, adamw_init(lspecs.params_shape(cfg)), p_specs)
+        opt = partition.opt_init(model, o_specs, mesh)
+        batch = _local_rows(data["batch"], mesh, device)
+        ce, aux, gn_ce = ce_figures(model, cfg, batch, mesh)
+        step = make_train_step(cfg, OptConfig(**TRAIN_OPT), mesh,
+                               grad_specs=o_specs["master"])
+        _, opt, m = step(model, opt, batch)
+        res[arch] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "ce": ce, "aux": aux,
+                     "gn_ce": gn_ce}
+        for key in ("master", "mu"):
+            full = partition.gather_named(opt[key], o_specs[key], mesh)
+            res[arch][key] = {n: t.cpu() for n, t in full.items()}
+    mo = torch.load(os.path.join(d, "moe.pt"))
+    cfg = dataclasses.replace(reduced(get_config(TRAIN_FULL)),
+                              capacity_factor=4.0)
+    p = layers.MoE(cfg, device, torch.float32)
+    p.load_state_dict(mo["state"])
+    partition.shard_module(p, partition.params_specs(mesh, p), mesh)
+    y, _ = layers.moe_a2a(p, _local_rows({"x": mo["x"]}, mesh, device)["x"],
+                          cfg, mesh)
+    res["moe_y"] = y.detach().cpu()
+    ring = torch.load(os.path.join(d, "ring.pt"))
+    x, w = ring["x"].to(device), ring["w"].to(device)
+    ref = torch.matmul(x, w)
+    errs = {}
+    for name, mm in (("2x2", mesh), ("1x4", make_test_mesh(1, 4).bind())):
+        tp, i = mm.axis_size("model"), mm.coord("model")
+        xl = x.chunk(mm.axis_size("data"), 0)[mm.coord("data")]
+        want = ref.chunk(mm.axis_size("data"), 0)[mm.coord("data")]
+        got = ring_ag_matmul(xl.chunk(tp, 1)[i].contiguous(),
+                             w.chunk(tp, 1)[i].contiguous(), mm)
+        errs[name] = float((got - want.chunk(tp, 2)[i]).abs().max())
+    res["ring_err"] = errs
+    mesh41 = make_test_mesh(4, 1).bind()
+    g = ring["psum_g"].to(device)
+    q = quantized_psum(g[mesh41.coord("data")], mesh41, "data")
+    res["psum_rel"] = float(((q - g.sum(0)).abs() / (1 + g.sum(0).abs()))
+                            .max())
+    res["kernels_moved"] = kernel_counts() != before
+    res["stats"] = STATS.snapshot()
+    torch.save(res, os.path.join(d, f"rank{rank}.pt"))
+
+
+def phase_mesh_reduced():
+    """Reduced, f32, at 2x2 in four processes on the card: each family's
+    step against the one-device step on the card from the same weights and
+    batch; moe_a2a against the dense dispatch; the ring; quantized_psum."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_test_mesh, run_world
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import layers
+    from repro_torch.optim import OptConfig, adamw_init
+
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    one, rows = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        for arch in MESH_ARCHS:
+            cfg = no_drop(reduced(get_config(arch)))
+            params = lm_init(cfg).requires_grad_(True)
+            batch = train_batch(cfg, seed=0, b=4, s=20)
+            torch.save({"state": {k: v.cpu() for k, v in
+                                  params.state_dict().items()},
+                        "batch": batch}, os.path.join(d, f"{arch}.pt"))
+            on = to_device(batch, "cuda")
+            ce, aux, gn_ce = ce_figures(params, cfg, on, make_test_mesh(1, 1))
+            opt = adamw_init(params)
+            _, opt, m = make_train_step(cfg, opt_cfg, make_test_mesh(1, 1))(
+                params, opt, on)
+            one[arch] = {"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "lr": float(m["lr"]), "ce": ce, "aux": aux,
+                         "gn_ce": gn_ce,
+                         "master": {n: t.cpu() for n, t in
+                                    opt["master"].items()},
+                         "mu": {n: t.cpu() for n, t in opt["mu"].items()}}
+        cfg = dataclasses.replace(reduced(get_config(TRAIN_FULL)),
+                                  capacity_factor=4.0)
+        p = layers.MoE(cfg, "cuda", torch.float32)
+        p.init_(torch.Generator(device="cuda").manual_seed(3))
+        x = torch.randn((4, 16, cfg.d_model), generator=torch.Generator()
+                        .manual_seed(4))
+        dense, _ = layers.moe_dense(p, x.to("cuda"), cfg)
+        torch.save({"state": {k: v.cpu() for k, v in p.state_dict().items()},
+                    "x": x}, os.path.join(d, "moe.pt"))
+        gen = torch.Generator().manual_seed(5)
+        torch.save({"x": torch.randn((4, 16, 32), generator=gen),
+                    "w": torch.randn((32, 64), generator=gen) * 0.1,
+                    "psum_g": torch.randn((4, 256), generator=gen)},
+                   os.path.join(d, "ring.pt"))
+        t1 = time.perf_counter()
+        run_world(_mesh_reduced_rank, 4, "cuda", d)
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"))
+                 for r in range(4)]
+    t2 = time.perf_counter()
+    for arch in MESH_ARCHS:
+        got, ref = ranks[0][arch], one[arch]
+        check(all(r[arch]["loss"] == got["loss"] for r in ranks),
+              f"{arch}: the ranks' losses differ")
+        ce_err = abs(got["ce"] - ref["ce"]) / abs(ref["ce"])
+        gn_ce_err = abs(got["gn_ce"] - ref["gn_ce"]) / ref["gn_ce"]
+        if arch == TRAIN_FULL:
+            # the aux loss is a per-shard estimator: the step's loss must
+            # differ from one device's by 0.01 x the aux losses' difference
+            loss_err = abs((got["loss"] - ref["loss"])
+                           - 0.01 * (got["aux"] - ref["aux"])) / ref["loss"]
+            gnorm_err, over = gn_ce_err, 0.0
+        else:
+            loss_err = abs(got["loss"] - ref["loss"]) / ref["loss"]
+            gnorm_err = abs(got["grad_norm"] - ref["grad_norm"]) \
+                / ref["grad_norm"]
+            over = master_bound_err(got, ref, ref["lr"], opt_cfg)
+        rows[arch] = {"loss_rel_err": loss_err, "gnorm_rel_err": gnorm_err,
+                      "ce_rel_err": ce_err, "gn_ce_rel_err": gn_ce_err,
+                      "master_over_bound": over}
+        check(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL
+              and ce_err <= TRAIN_LOSS_TOL and gn_ce_err <= TRAIN_GNORM_TOL
+              and over <= 0.0,
+              f"{arch}: 2x2 vs one device on the card: {rows[arch]}")
+    moe_err = max(float((r["moe_y"] - dense.cpu()[2 * (i // 2):
+                                                  2 * (i // 2) + 2])
+                        .abs().max()) for i, r in enumerate(ranks))
+    ring_err = max(max(r["ring_err"].values()) for r in ranks)
+    psum_rel = max(r["psum_rel"] for r in ranks)
+    check(moe_err <= 1e-4 and ring_err <= 1e-5 and psum_rel < 0.05,
+          f"moe_a2a vs dense {moe_err:.3e}, ring {ring_err:.3e}, "
+          f"quantized_psum {psum_rel:.3e}")
+    check(not any(r["kernels_moved"] for r in ranks),
+          "a hand-written kernel launched in a mesh rank")
+    out = {"steps": rows, "moe_a2a_vs_dense": moe_err, "ring_err": ring_err,
+           "quantized_psum_rel": psum_rel,
+           "stats": [r["stats"] for r in ranks],
+           "seconds": {"one_device": t1 - t0, "world": t2 - t1}}
+    print("mesh reduced: " + json.dumps(out))
+    return out
+
+
+def _mesh_figures_rank(rank, device, d):
+    """One rank of the full-width 2x2 step's figures: the device time of a
+    step (``device_ms``: one step traced after one warm-up step), the
+    collectives per step of the steps it ran, peak memory.  The call time
+    per step is ``main``'s (its per-rank ``step_s``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sharding import STATS
+    from repro_torch.optim import OptConfig
+
+    before = kernel_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    mesh = make_test_mesh(2, 2).bind()
+    cfg = dataclasses.replace(get_config(TRAIN_FULL), microbatch=1)
+    params, opt, step_fn = train.build(
+        cfg, mesh, OptConfig(warmup_steps=10, total_steps=10), device=device)
+    batch = train.make_batches(cfg, 8, 128, device, mesh=mesh)(0)
+    state = {"p": params, "o": opt, "steps": 0}
+
+    def step():
+        _, state["o"], m = step_fn(state["p"], state["o"], batch)
+        state["steps"] += 1
+        return m
+
+    STATS.reset()
+    dev = device_ms(step, runs=1, warm=1)
+    n = state["steps"]
+    out = {"rank": rank, "step_device_ms": dev,
+           "collectives_per_step": {
+               "calls": {k: v / n for k, v in STATS.calls.items()},
+               "bytes": {k: v / n for k, v in STATS.bytes.items()},
+               "host_staged_bytes": STATS.host_staged_bytes / n},
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           "kernels_moved": kernel_counts() != before}
+    with open(os.path.join(d, f"fig{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _mesh_reshard_rank(rank, device, ckpt_dir, d):
+    """One of two ranks: the 2x2 run's last checkpoint resharded onto 2x1,
+    and every slice held against the files, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager, store
+    from repro_torch.configs import get_config
+    from repro_torch.launch import partition, specs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import reshard_checkpoint, shardings_for
+
+    mesh = make_test_mesh(2, 1).bind()
+    cfg = get_config(TRAIN_FULL)
+    shape = specs.params_shape(cfg)
+    t0 = time.perf_counter()
+    params, opt = reshard_checkpoint(CheckpointManager(ckpt_dir), cfg, mesh,
+                                     shape, adamw_init(shape), device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    p_shard, o_shard = shardings_for(mesh, cfg, shape, adamw_init(shape))
+    step = store.latest_step(ckpt_dir)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    index = {p: i for i, p in enumerate(manifest["extra"]["paths"])}
+    same, n = True, 0
+    for file_path, layer, t, ns in store._targets(
+            {"params": params, "opt": opt},
+            {"params": p_shard, "opt": o_shard}):
+        rec = manifest["arrays"][index[file_path]]
+        arr = np.load(os.path.join(path, rec["file"]), mmap_mode="r")
+        if layer is not None:
+            arr = arr[layer]
+        spec = ns.spec[1:] if layer is not None else ns.spec
+        want = np.array(arr[partition.slices(arr.shape, spec, mesh)])
+        got = t.detach().cpu()
+        if got.dtype == torch.bfloat16:
+            got = got.view(torch.int16)
+        same &= want.tobytes() == got.numpy().tobytes()
+        n += 1
+    with open(os.path.join(d, f"reshard{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "load_s": load_s, "leaves": n,
+                   "bit_equal": bool(same)}, f)
+
+
+def _mesh_f32_rank(rank, device, d):
+    """One rank of the full-width f32 check (no-drop capacity): ce, aux
+    and the gradient norm of ce, then one step, at 2x2."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import OptConfig
+
+    mesh = make_test_mesh(2, 2).bind()
+    cfg = no_drop(dataclasses.replace(get_config(TRAIN_FULL), microbatch=1))
+    params, opt, step = train.build(cfg, mesh, OptConfig(**TRAIN_OPT),
+                                    dtype=torch.float32, device=device)
+    batch = train.make_batches(cfg, MESH_F32_B, MESH_F32_S, device,
+                               dtype=torch.float32, mesh=mesh)(0)
+    ce, aux, gn_ce = ce_figures(params, cfg, batch, mesh)
+    _, _, m = step(params, opt, batch)
+    if rank == 0:
+        with open(os.path.join(d, "f32.json"), "w") as f:
+            json.dump({"ce": ce, "aux": aux, "gn_ce": gn_ce,
+                       "loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"])}, f)
+
+
+def phase_mesh_full(probe):
+    """TRAIN_FULL at full width on 2x2 through ``main`` at its defaults, a
+    reshard of its checkpoint onto 2x1, the figures of one step, and an f32
+    check against one device; the ``mesh train:`` line."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs, train
+    from repro_torch.launch.mesh import make_test_mesh, run_world
+    from repro_torch.optim import OptConfig
+
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    cfg = get_config(TRAIN_FULL)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt_dir = os.path.join(d, "ckpt")
+        run = train.main(["--arch", TRAIN_FULL, "--data-mesh", "2",
+                          "--model-mesh", "2", "--steps",
+                          str(TRAIN_FULL_STEPS), "--ckpt-dir", ckpt_dir])
+        t_main = time.perf_counter()
+        losses = run.summary["losses"]
+        ln_v = math.log(cfg.vocab)
+        check(len(losses) == TRAIN_FULL_STEPS and all(
+            math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and abs(losses[0] - ln_v) < 1.5,
+            f"{TRAIN_FULL} on 2x2: losses {losses} (first near ln V = "
+            f"{ln_v:.3f})")
+        step_dir = os.path.join(ckpt_dir, f"step_{TRAIN_FULL_STEPS:08d}")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(step_dir).iterdir())
+        run_world(_mesh_reshard_rank, 2, "cuda", ckpt_dir, d)
+        t_reshard = time.perf_counter()
+        reshard = []
+        for r in range(2):
+            with open(os.path.join(d, f"reshard{r}.json")) as f:
+                reshard.append(json.load(f))
+        check(all(r["bit_equal"] for r in reshard),
+              f"the 2x1 reshard of the 2x2 checkpoint is not bit-equal: "
+              f"{reshard}")
+        shutil.rmtree(ckpt_dir)
+        run_world(_mesh_figures_rank, 4, "cuda", d)
+        figures = []
+        for r in range(4):
+            with open(os.path.join(d, f"fig{r}.json")) as f:
+                figures.append(json.load(f))
+        t_figures = time.perf_counter()
+        check(not any(f["kernels_moved"] for f in figures),
+              "a hand-written kernel launched in a full-width mesh rank")
+        run_world(_mesh_f32_rank, 4, "cuda", d)
+        with open(os.path.join(d, "f32.json")) as f:
+            mesh_f32 = json.load(f)
+    # the same weights and batch on one device, after the ranks have gone
+    torch.cuda.empty_cache()
+    one_cfg = no_drop(dataclasses.replace(cfg, microbatch=1))
+    params, opt, step = train.build(one_cfg, make_test_mesh(1, 1),
+                                    OptConfig(**TRAIN_OPT),
+                                    dtype=torch.float32, device="cuda")
+    batch = train.make_batches(one_cfg, MESH_F32_B, MESH_F32_S, "cuda",
+                               dtype=torch.float32)(0)
+    ce, aux, gn_ce = ce_figures(params, one_cfg, batch, make_test_mesh(1, 1))
+    _, _, m = step(params, opt, batch)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    t_f32 = time.perf_counter()
+    one_f32 = {"ce": ce, "aux": aux, "gn_ce": gn_ce, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"])}
+    f32 = {"ce_rel_err": abs(mesh_f32["ce"] - ce) / ce,
+           "gn_ce_rel_err": abs(mesh_f32["gn_ce"] - gn_ce) / gn_ce,
+           "loss_minus_aux_rel_err": abs(
+               (mesh_f32["loss"] - one_f32["loss"])
+               - 0.01 * (mesh_f32["aux"] - aux)) / one_f32["loss"],
+           "mesh": mesh_f32, "one_device": one_f32}
+    check(f32["ce_rel_err"] <= TRAIN_LOSS_TOL
+          and f32["gn_ce_rel_err"] <= TRAIN_GNORM_TOL
+          and f32["loss_minus_aux_rel_err"] <= TRAIN_LOSS_TOL,
+          f"{TRAIN_FULL} f32 2x2 vs one device: {f32}")
+    b_ms, b_by, n_bytes, flops = train_bound(specs.params_shape(cfg), cfg,
+                                             8, 128)
+    ranks = run.summary["ranks"]
+    return {"arch": TRAIN_FULL, "mesh": {"data": 2, "model": 2},
+            "backend": run.backend, "gloo_cuda": probe,
+            "params": sum(p.numel() for p in
+                          specs.params_shape(cfg).parameters()),
+            "dtype": "bfloat16", "batch": 8, "seq": 128, "remat": cfg.remat,
+            "losses": losses, "restarts": run.summary["restarts"],
+            "ranks": [{"rank": r, "peak_bytes": ranks[r]["peak_bytes"],
+                       "step_call_s": ranks[r]["step_s"],
+                       "run_collectives": ranks[r]["collectives"],
+                       "figures_peak_bytes": figures[r]["peak_bytes"],
+                       **{k: figures[r][k] for k in
+                          ("step_device_ms", "collectives_per_step")}}
+                      for r in range(4)],
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": n_bytes,
+            "bound_flops": flops, "ckpt_bytes": ckpt_bytes,
+            "save_s": ranks[0]["save_s"],
+            "reshard_2x1_s": [r["load_s"] for r in reshard],
+            "reshard_leaves": reshard[0]["leaves"], "f32_vs_one_device": f32,
+            "seconds": {"main": t_main - t_start,
+                        "reshard": t_reshard - t_main,
+                        "figures": t_figures - t_reshard,
+                        "f32": t_f32 - t_figures,
+                        "phase": t_f32 - t_start}}
+
+
+def phase_mesh():
+    """Phase 11: training on a 2x2 mesh of processes on the one card; no
+    hand-written kernel may launch."""
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    probe = phase_mesh_probe()
+    phase_mesh_reduced()
+    row = phase_mesh_full(probe)
+    row["seconds"]["phase_11"] = time.perf_counter() - t0
+    print("mesh train: " + json.dumps(row))
+    check(kernel_counts() == before,
+          f"a hand-written kernel launched during phase 11: "
+          f"{before} -> {kernel_counts()}")
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s; no hand-written "
+          f"kernel launched in any rank")
+
+
 def main() -> int:
     # cuBLAS's deterministic workspace setting (phase 10 turns on
     # deterministic algorithms); it must be set before CUDA starts, and
@@ -2398,6 +2949,7 @@ def main() -> int:
         sharded_launches = phase_sharded(layers, rng, Engine, plans["f32"])
         phase_lm()
         phase_train()
+        phase_mesh()
         kernels = kernel_line(entries, launches, main_err, sharded_launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

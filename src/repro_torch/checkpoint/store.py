@@ -24,6 +24,14 @@ bf16 leaves as raw bits.  So a checkpoint either package writes, the other
 restores.  Restoring copies into the tensors of ``tree_like`` (a module's
 parameters, an optimizer state's tensors) in place, on their devices.
 
+In a sharded world (a ``CheckpointManager`` given ``shardings``: a tree
+like the saved one whose named groups map ``state_dict`` names to
+``launch.partition.NamedSharding``s) a save gathers host-complete arrays,
+leaf by leaf on every rank, and rank 0 writes them: the files a one-device
+save of the same weights writes.  A load with ``target_shardings`` makes
+each rank read its own slices (the arrays memory-mapped, each checked
+whole against its crc) into tensors of its slices' shapes.
+
 Layout of one checkpoint:
 
     <dir>/step_<N>/
@@ -45,6 +53,8 @@ import torch
 from torch import nn
 
 from ..convert import Stacked, reference_layout
+from ..launch import partition
+from ..models.sharding import barrier
 
 #: logical name of each narrow float dtype -> the numpy type of its raw bits
 NARROW_DTYPES = {
@@ -113,6 +123,21 @@ def read_manifest_dir(path: str, verify: bool = True
     ``NARROW_DTYPES``) come back as their raw bits; ``verify`` checks every
     crc and raises ``IOError`` on corruption.
     """
+    manifest = _manifest(path)
+    arrays: Dict[str, np.ndarray] = {}
+    for rec in manifest["arrays"]:
+        arr = np.load(os.path.join(path, rec["file"]))
+        if arr.dtype.kind == "V" and rec["dtype"] in NARROW_DTYPES:
+            arr = arr.view(NARROW_DTYPES[rec["dtype"]])
+        if verify and (zlib.crc32(arr.tobytes()) & 0xFFFFFFFF) != rec["crc"]:
+            raise IOError(f"crc mismatch in {rec['file']} ({rec['name']})")
+        arrays[rec["name"]] = arr
+    return arrays, manifest.get("extra", {})
+
+
+def _manifest(path: str) -> Dict:
+    """A manifest directory's ``manifest.json``, a legacy tree manifest
+    rewritten into the current layout."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if "arrays" not in manifest and "leaves" in manifest:
@@ -126,15 +151,7 @@ def read_manifest_dir(path: str, verify: bool = True
                       "paths": [rec["path"] for rec in manifest["leaves"]],
                       "extra": manifest.get("extra", {})},
         }
-    arrays: Dict[str, np.ndarray] = {}
-    for rec in manifest["arrays"]:
-        arr = np.load(os.path.join(path, rec["file"]))
-        if arr.dtype.kind == "V" and rec["dtype"] in NARROW_DTYPES:
-            arr = arr.view(NARROW_DTYPES[rec["dtype"]])
-        if verify and (zlib.crc32(arr.tobytes()) & 0xFFFFFFFF) != rec["crc"]:
-            raise IOError(f"crc mismatch in {rec['file']} ({rec['name']})")
-        arrays[rec["name"]] = arr
-    return arrays, manifest.get("extra", {})
+    return manifest
 
 
 def manifest_exists(path: str) -> bool:
@@ -241,6 +258,53 @@ def _from_disk(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _mesh(shardings):
+    """The mesh of the first ``NamedSharding`` in a tree."""
+    for v in shardings.values():
+        return v.mesh if isinstance(v, partition.NamedSharding) else _mesh(v)
+
+
+def _writer(mesh) -> bool:
+    return all(mesh.coord(a) == 0 for a in mesh.axis_names)
+
+
+def _is_named(shard) -> bool:
+    return isinstance(shard, Mapping) and bool(shard) and all(
+        isinstance(v, partition.NamedSharding) for v in shard.values())
+
+
+def _named(node) -> Dict[str, torch.Tensor]:
+    if isinstance(node, nn.Module):
+        return dict(node.named_parameters())
+    return dict(node)
+
+
+def _gather_host(tree, shardings):
+    """The whole of a sharded tree on the host of rank 0 (None on the
+    others), gathered one leaf of the reference's tree at a time.
+    Collective: every rank calls it, with trees of the same structure."""
+    mesh = _mesh(shardings)
+    writer = _writer(mesh)
+
+    def walk(node, shard):
+        if _is_named(shard):
+            specs = {n: s.spec for n, s in shard.items()}
+            out = {}
+            for part in partition.iter_gathered(_named(node), specs, mesh):
+                if writer:
+                    out.update({n: t.detach().to("cpu", copy=True)
+                                for n, t in part.items()})
+            return out
+        if isinstance(shard, Mapping):
+            return {k: walk(node[k], shard[k]) for k in shard}
+        full = partition.gather_named({"x": node}, {"x": shard.spec},
+                                      mesh)["x"]
+        return full.detach().to("cpu", copy=True) if writer else None
+
+    host = walk(tree, shardings)
+    return host if writer else None
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[Dict] = None) -> str:
     """Blocking atomic save.  Returns the final checkpoint path."""
@@ -274,6 +338,58 @@ def _leaf_shape(leaf) -> Tuple[int, ...]:
     return tuple(leaf.shape)
 
 
+def _targets(node, shard, prefix: str = ""):
+    """(file path, layer index or None, tensor, NamedSharding) of every
+    tensor of a sharded ``tree_like``."""
+    if _is_named(shard):
+        for name, t in _named(node).items():
+            where = partition.layer_of(name)
+            keys = name.split(".")
+            if where is not None:
+                keys = keys[:1] + keys[2:]
+            path = prefix + "".join(f"[{k!r}]" for k in keys)
+            yield path, None if where is None else where[1], t, shard[name]
+    elif isinstance(shard, Mapping):
+        for k in shard:
+            yield from _targets(node[k], shard[k], f"{prefix}[{k!r}]")
+    else:
+        yield prefix, None, node, shard
+
+
+def _load_slices(path: str, tree_like, target_shardings, verify: bool):
+    """Each tensor of ``tree_like`` receives its slice of the file's leaf
+    (memory-mapped, so only what is copied is read beyond the crc check)."""
+    manifest = _manifest(path)
+    records = manifest["arrays"]
+    paths = manifest["extra"]["paths"]
+    index = {p: i for i, p in enumerate(paths)}
+    loaded: Dict[int, np.ndarray] = {}
+    for file_path, layer, like, ns in _targets(tree_like, target_shardings):
+        if file_path not in index:
+            raise ValueError(f"{file_path} is not in the checkpoint")
+        i = index[file_path]
+        rec = records[i]
+        if i not in loaded:
+            arr = np.load(os.path.join(path, rec["file"]), mmap_mode="r")
+            if arr.dtype.kind == "V" and rec["dtype"] in NARROW_DTYPES:
+                arr = arr.view(NARROW_DTYPES[rec["dtype"]])
+            if verify and (zlib.crc32(arr) & 0xFFFFFFFF) != rec["crc"]:
+                raise IOError(f"crc mismatch in {rec['file']} ({file_path})")
+            loaded[i] = arr
+        arr = loaded[i] if layer is None else loaded[i][layer]
+        spec = ns.spec[1:] if layer is not None else ns.spec
+        piece = arr[partition.slices(arr.shape, spec, ns.mesh)]
+        if tuple(piece.shape) != tuple(like.shape):
+            raise ValueError(f"shape mismatch for {file_path}: the slice is "
+                             f"{piece.shape}, the tensor {tuple(like.shape)}")
+        value = _from_disk(np.array(piece), rec["dtype"])
+        if value.dtype != like.dtype:
+            raise ValueError(f"dtype mismatch for {file_path}: "
+                             f"{rec['dtype']} vs {like.dtype}")
+        like.copy_(value)
+    return tree_like
+
+
 @torch.no_grad()
 def load_checkpoint(directory: str, tree_like: Any, step: Optional[int] = None,
                     target_shardings: Any = None, verify: bool = True) -> Any:
@@ -282,16 +398,16 @@ def load_checkpoint(directory: str, tree_like: Any, step: Optional[int] = None,
     Its leaves must be tensors (a module's parameters, an optimizer state's
     tensors): each receives the checkpoint's values in place, on its own
     device, as ``load_state_dict`` does.  The leaf count, every path,
-    shape and dtype must match the file's.  ``target_shardings`` (the
-    reference's re-sharding onto a mesh) must be None: one device."""
-    if target_shardings is not None:
-        raise NotImplementedError(
-            "target_shardings re-shards onto a mesh; one device only")
+    shape and dtype must match the file's.  With ``target_shardings`` (a
+    tree of ``NamedSharding``s like ``tree_like``, whose tensors are this
+    rank's slices) each tensor receives its slice of the file's leaf."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(directory, f"step_{step:08d}")
+    if target_shardings is not None:
+        return _load_slices(path, tree_like, target_shardings, verify)
     arrays, meta = read_manifest_dir(path, verify=verify)
     dtypes = _manifest_dtypes(path)
     leaves = _flatten(tree_like)
@@ -325,11 +441,21 @@ def load_checkpoint(directory: str, tree_like: Any, step: Optional[int] = None,
 
 
 class CheckpointManager:
-    """Async single-writer checkpoint manager with retention."""
+    """Async single-writer checkpoint manager with retention.
 
-    def __init__(self, directory: str, keep: int = 3):
+    With ``shardings`` (the trees' layout in a sharded world) every rank
+    calls every method in the same order: saves gather on the caller's
+    thread and rank 0 writes; ``wait``, ``latest_step`` and ``restore``
+    first wait for rank 0's write to land, and restores read this rank's
+    slices unless given other ``target_shardings``."""
+
+    def __init__(self, directory: str, keep: int = 3, shardings: Any = None):
         self.directory = directory
         self.keep = keep
+        self.shardings = shardings
+        self._mesh = None
+        if shardings is not None and _mesh(shardings).size > 1:
+            self._mesh = _mesh(shardings)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         os.makedirs(directory, exist_ok=True)
@@ -338,15 +464,23 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            barrier(self._mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def async_save(self, step: int, tree: Any, extra: Optional[Dict] = None):
         """The copy to the host happens on the caller's thread (a
-        consistent snapshot); file I/O runs in the background."""
+        consistent snapshot; in a sharded world, the collective gather, in
+        the same order on every rank); file I/O runs in the background."""
         self.wait()
-        host_tree = _host_tree(tree)
+        if self._mesh is not None:
+            host_tree = _gather_host(tree, self.shardings)
+            if host_tree is None:
+                return
+        else:
+            host_tree = _host_tree(tree)
 
         def work():
             try:
@@ -360,6 +494,13 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> str:
         self.wait()
+        if self._mesh is not None:
+            host = _gather_host(tree, self.shardings)
+            if host is not None:
+                save_checkpoint(self.directory, step, host, extra)
+                self._gc()
+            barrier(self._mesh)
+            return os.path.join(self.directory, f"step_{step:08d}")
         p = save_checkpoint(self.directory, step, tree, extra)
         self._gc()
         return p
@@ -368,9 +509,11 @@ class CheckpointManager:
                 target_shardings: Any = None) -> Any:
         self.wait()
         return load_checkpoint(self.directory, tree_like, step,
-                               target_shardings)
+                               target_shardings or self.shardings)
 
     def latest_step(self) -> Optional[int]:
+        if self._mesh is not None:
+            self.wait()
         return latest_step(self.directory)
 
     def _gc(self):

@@ -5,8 +5,8 @@ model has non-trivial structure to learn and the loss visibly decreases);
 ``TokenBatcher`` packs it into (tokens, labels) batches keyed by *step
 number*, so a restarted job re-reads exactly the batches it would have seen —
 the property the fault-tolerance path relies on.  ``sharded_batches`` moves
-each batch to one device (the reference's places it onto a mesh with the dp
-sharding).
+each batch to this rank's device, keeping this data rank's rows on a mesh
+(the reference's places the batch onto a mesh with the dp sharding).
 
 Port of ``repro.data.pipeline``: the classes are the reference's, line for
 line.
@@ -19,6 +19,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+from ..launch import partition
 
 
 @dataclasses.dataclass
@@ -66,12 +67,17 @@ class TokenBatcher:
 
 
 def sharded_batches(batcher: TokenBatcher, device,
-                    steps: Optional[int] = None) -> Iterator[Dict]:
-    """One device's counterpart of the reference's ``sharded_batches``:
-    each step's batch as tensors on ``device``.  Splitting a batch over a
-    data axis needs more than one device and is not ported."""
+                    steps: Optional[int] = None, mesh=None) -> Iterator[Dict]:
+    """Each step's batch as tensors on ``device``; on a (bound) mesh, only
+    this data rank's rows, under the reference's batch specs (the rows are
+    split over the data axes when they divide, else every rank keeps
+    them all)."""
     step = 0
     while steps is None or step < steps:
-        b = batcher(step)
-        yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        b = {k: torch.from_numpy(v) for k, v in batcher(step).items()}
+        if mesh is not None and mesh.size > 1:
+            specs = partition.batch_specs(mesh, b)
+            b = {k: partition.local_shard(v, specs[k], mesh)
+                 for k, v in b.items()}
+        yield {k: v.to(device) for k, v in b.items()}
         step += 1

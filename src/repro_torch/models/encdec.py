@@ -6,7 +6,8 @@ is a causal transformer with cross-attention; ``decode_step`` runs one
 target token against a self-attention KV cache plus the precomputed
 cross-attention cache.  In training with ``cfg.remat`` each encoder and
 decoder layer is recomputed in the backward pass, as the reference's
-``jax.checkpoint`` does.
+``jax.checkpoint`` does.  Under a ``model`` axis the attention and MLP
+layers and the vocabulary run split as in ``lm``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from .common import dense_init_, param, rms_norm
 from .config import ModelConfig
 from .layers import MLP, Attention, attention, make_cache, mlp
 from .lm import (AttnBlock, _index, _logits, _maybe_remat, _positions, _stack,
-                 _stacked, lm_loss_from_h, unembed_matrix)
+                 _stacked, embed_tokens, lm_loss_from_h, unembed_matrix)
 
 
 class DecBlock(nn.Module):
@@ -50,6 +51,7 @@ class EncDec(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda", dtype=torch.bfloat16):
         super().__init__()
         d, V = cfg.d_model, cfg.vocab
+        self.vocab = V
         self.embed = param((V, d), device, dtype)
         self.enc_layers = nn.ModuleList(
             [AttnBlock(cfg, device, dtype) for _ in range(cfg.n_enc_layers)])
@@ -79,15 +81,15 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def encode(params: EncDec, cfg: ModelConfig, src_embeds: torch.Tensor,
-           train: bool = False):
+           train: bool = False, mesh=None):
     B, S = src_embeds.shape[:2]
     positions = _positions(B, S, src_embeds.device)
 
     def body(p, hh):
         a, _ = attention(p.attn, rms_norm(hh, p.ln1, cfg.norm_eps),
-                         positions, cfg, causal=False)
+                         positions, cfg, causal=False, mesh=mesh)
         hh = hh + a
-        return hh + mlp(p.mlp, rms_norm(hh, p.ln2, cfg.norm_eps), cfg)
+        return hh + mlp(p.mlp, rms_norm(hh, p.ln2, cfg.norm_eps), cfg, mesh)
 
     body = _maybe_remat(body, cfg, train)
     h = src_embeds
@@ -97,26 +99,28 @@ def encode(params: EncDec, cfg: ModelConfig, src_embeds: torch.Tensor,
 
 
 def _dec_block(p: DecBlock, h, positions, enc_out, cfg: ModelConfig,
-               self_cache=None, cross_cache=None):
+               self_cache=None, cross_cache=None, mesh=None):
     a, new_self = attention(p.self_attn, rms_norm(h, p.ln1, cfg.norm_eps),
-                            positions, cfg, causal=True, cache=self_cache)
+                            positions, cfg, causal=True, cache=self_cache,
+                            mesh=mesh)
     h = h + a
     x, new_cross = attention(p.cross_attn, rms_norm(h, p.ln_x, cfg.norm_eps),
                              positions, cfg, causal=False, cache=cross_cache,
-                             kv_from=enc_out, cross=True)
+                             kv_from=enc_out, cross=True, mesh=mesh)
     h = h + x
-    h = h + mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+    h = h + mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg, mesh)
     return h, new_self, new_cross
 
 
 def decode_train(params: EncDec, cfg: ModelConfig, enc_out, tgt_tokens,
-                 train: bool = False):
+                 train: bool = False, mesh=None):
     """Teacher-forced decoder over the whole target: final-normed h."""
     B, S = tgt_tokens.shape
     positions = _positions(B, S, enc_out.device)
     body = _maybe_remat(
-        lambda p, hh: _dec_block(p, hh, positions, enc_out, cfg)[0], cfg, train)
-    h = params.embed[tgt_tokens.long()]
+        lambda p, hh: _dec_block(p, hh, positions, enc_out, cfg,
+                                 mesh=mesh)[0], cfg, train)
+    h = embed_tokens(params, tgt_tokens, mesh)
     for p in params.dec_layers:
         h = body(p, h)
     return rms_norm(h, params.final_norm, cfg.norm_eps)
@@ -125,9 +129,10 @@ def decode_train(params: EncDec, cfg: ModelConfig, enc_out, tgt_tokens,
 def loss_fn(params: EncDec, cfg: ModelConfig, batch: Dict, mesh=None):
     """batch: {"src_embeds": [B,Ss,d], "tgt_tokens": [B,St], "labels": [B,St]}.
     Returns (ce, {"ce", "aux" = 0})."""
-    enc_out = encode(params, cfg, batch["src_embeds"], train=True)
-    h = decode_train(params, cfg, enc_out, batch["tgt_tokens"], train=True)
-    ce = lm_loss_from_h(params, cfg, h, batch["labels"])
+    enc_out = encode(params, cfg, batch["src_embeds"], train=True, mesh=mesh)
+    h = decode_train(params, cfg, enc_out, batch["tgt_tokens"], train=True,
+                     mesh=mesh)
+    ce = lm_loss_from_h(params, cfg, h, batch["labels"], mesh)
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
@@ -149,16 +154,16 @@ def decode_step(params: EncDec, cfg: ModelConfig, tokens, caches: Dict,
                 mesh=None):
     """tokens: [B, 1] target token; caches from ``make_dec_caches``.
     Returns (f32 logits [B, V], new caches); ``caches`` is not modified."""
-    h = params.embed[tokens.long()]
+    h = embed_tokens(params, tokens, mesh)
     positions = caches["self"]["pos"][0].expand(h.shape[0], 1)
     new_self = []
     for i, p in enumerate(params.dec_layers):
         h, c, _ = _dec_block(p, h, positions, None, cfg,
                              self_cache=_index(caches["self"], i),
-                             cross_cache=_index(caches["cross"], i))
+                             cross_cache=_index(caches["cross"], i), mesh=mesh)
         new_self.append(c)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return _logits(params, h)[:, 0], {"self": _stack(new_self),
+    return _logits(params, h, mesh)[:, 0], {"self": _stack(new_self),
                                       "cross": caches["cross"]}
 
 

@@ -15,6 +15,14 @@ Caches keep the reference's stacked layouts, so they compare directly:
 and ``{"ssm_main": [G, P, ...], "ssm_tail": [tail, ...] or None,
 "attn": [G, ...]}`` (hybrid: G groups of P layers).
 
+Under a ``model`` axis (a bound ``launch.mesh.DeviceMesh`` as ``mesh``;
+each rank's module holds its slices) the layers run tensor-parallel
+(``layers``, ``ssm``); an embedding split by vocabulary looks tokens up in
+its rows and sums over ``model``, and its logits stay split, the cross
+entropy's max and sum of exponentials reduced over ``model``.  The loss is
+the mean over this rank's rows: the train step averages it over the data
+axes.
+
 Entry points (the reference's, with the module in place of ``params``):
   init(generator, cfg)                     -> LM on the generator's device
   forward(params, cfg, tokens|embeds, train) -> (h, aux)
@@ -28,12 +36,14 @@ from __future__ import annotations
 from typing import Callable, Dict, List
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .common import dense_init_, param, rms_norm
 from .config import ModelConfig
 from .layers import MLP, Attention, MoE, attention, make_cache, mlp, moe
+from .sharding import axis_index, copy_to, gather_seq, reduce_, reduce_from
 from .ssm import SSM, make_ssm_cache, ssm_block
 
 
@@ -82,6 +92,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda", dtype=torch.bfloat16):
         super().__init__()
         d, V = cfg.d_model, cfg.vocab
+        self.vocab = V
         self.embed = param((V, d), device, dtype)
         self.final_norm = param((d,), device, dtype)
         if cfg.family in ("ssm", "hybrid"):
@@ -129,28 +140,30 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 def _dense_block(p: AttnBlock, h, positions, cfg: ModelConfig, mesh=None,
                  cache=None):
     a, new_cache = attention(p.attn, rms_norm(h, p.ln1, cfg.norm_eps),
-                             positions, cfg, causal=True, cache=cache)
+                             positions, cfg, causal=True, cache=cache,
+                             mesh=mesh)
     h = h + a
     aux = torch.zeros((), device=h.device)
     if cfg.family == "moe":
         m, aux = moe(p.moe, rms_norm(h, p.ln2, cfg.norm_eps), cfg, mesh)
     else:
-        m = mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+        m = mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg, mesh)
     return h + m, aux, new_cache
 
 
-def _ssm_layer(p: SSMBlock, h, cfg: ModelConfig, cache=None):
+def _ssm_layer(p: SSMBlock, h, cfg: ModelConfig, cache=None, mesh=None):
     s, new_cache = ssm_block(p.ssm, rms_norm(h, p.ln, cfg.norm_eps), cfg,
-                             cache=cache)
+                             cache=cache, mesh=mesh)
     return h + s, new_cache
 
 
 def _shared_attn_block(p: AttnBlock, h, positions, cfg: ModelConfig,
-                       cache=None):
+                       cache=None, mesh=None):
     a, new_cache = attention(p.attn, rms_norm(h, p.ln1, cfg.norm_eps),
-                             positions, cfg, causal=True, cache=cache)
+                             positions, cfg, causal=True, cache=cache,
+                             mesh=mesh)
     h = h + a
-    h = h + mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+    h = h + mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg, mesh)
     return h, new_cache
 
 
@@ -177,8 +190,18 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 # forward
 # =============================================================================
 
-def embed_tokens(params: LM, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.long()]
+def embed_tokens(params, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Rows of ``embed`` for ``tokens``; an embedding split by vocabulary
+    over ``model`` looks up the tokens in its own rows (zeros elsewhere)
+    and sums over ``model``."""
+    E = params.embed
+    tokens = tokens.long()
+    if E.shape[0] == params.vocab:
+        return E[tokens]
+    lo = axis_index(mesh) * E.shape[0]
+    mine = (tokens >= lo) & (tokens < lo + E.shape[0])
+    rows = E[(tokens - lo).clamp(0, E.shape[0] - 1)]
+    return reduce_from(rows * mine[..., None].to(rows.dtype), mesh)
 
 
 def _maybe_remat(fn: Callable, cfg: ModelConfig, train: bool) -> Callable:
@@ -192,11 +215,12 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig, train: bool) -> Callable:
 def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None,
             train: bool = False):
     """Full-sequence forward (no caches): (final-normed h [B, S, d], aux)."""
-    h = embed_tokens(params, tokens) if embeds is None else embeds
+    h = embed_tokens(params, tokens, mesh) if embeds is None else embeds
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)
     aux = torch.zeros((), device=h.device)
-    layer = _maybe_remat(lambda p, hh: _ssm_layer(p, hh, cfg)[0], cfg, train)
+    layer = _maybe_remat(lambda p, hh: _ssm_layer(p, hh, cfg, mesh=mesh)[0],
+                         cfg, train)
     if cfg.family in ("dense", "moe"):
         block = _maybe_remat(
             lambda p, hh: _dense_block(p, hh, positions, cfg, mesh)[:2],
@@ -212,8 +236,10 @@ def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None,
 
         def group(g, hh):
             for j in range(P):
-                hh = _ssm_layer(params.layers[g * P + j], hh, cfg)[0]
-            return _shared_attn_block(params.shared_attn, hh, positions, cfg)[0]
+                hh = _ssm_layer(params.layers[g * P + j], hh, cfg,
+                                mesh=mesh)[0]
+            return _shared_attn_block(params.shared_attn, hh, positions, cfg,
+                                      mesh=mesh)[0]
 
         group = _maybe_remat(group, cfg, train)
         for g in range(G):
@@ -229,19 +255,48 @@ def unembed_matrix(params) -> torch.Tensor:
     return params.embed.T                              # tied
 
 
-def _logits(params, h) -> torch.Tensor:
-    """f32 logits of h [..., d] (the reference's f32-accumulated product)."""
-    return torch.matmul(h.float(), unembed_matrix(params).float())
+def _vocab_split(params) -> bool:
+    return unembed_matrix(params).shape[1] < params.vocab
 
 
-def lm_loss_from_h(params, cfg: ModelConfig, h, labels) -> torch.Tensor:
+def _logits(params, h, mesh=None) -> torch.Tensor:
+    """f32 logits of h [..., d] (the reference's f32-accumulated product);
+    a vocabulary split over ``model`` is gathered."""
+    if not _vocab_split(params):
+        return torch.matmul(h.float(), unembed_matrix(params).float())
+    local = torch.matmul(copy_to(h, mesh).float(),
+                         unembed_matrix(params).float())
+    return gather_seq(local, mesh, dim=-1)
+
+
+def lm_loss_from_h(params, cfg: ModelConfig, h, labels, mesh=None
+                   ) -> torch.Tensor:
     """Mean cross entropy: logsumexp of the f32 logits minus the label's
     logit, taken from the label's unembedding row (no gather on the
-    [B, S, V] logits), as the reference computes it."""
-    W = unembed_matrix(params)                         # [d, V]
-    lse = torch.logsumexp(_logits(params, h), dim=-1)  # [B, S]
-    rows = W.T[labels.long()]                          # [B, S, d]
-    label_logit = (h.float() * rows.float()).sum(-1)
+    [B, S, V] logits), as the reference computes it.
+
+    With the vocabulary split over ``model`` each rank holds its columns of
+    the logits: the max and the sum of exponentials are reduced over
+    ``model`` (the max held constant), and the label's logit comes from the
+    rank that holds its row."""
+    W = unembed_matrix(params)                         # [d, V] or [d, V/tp]
+    labels = labels.long()
+    if not _vocab_split(params):
+        lse = torch.logsumexp(_logits(params, h), dim=-1)  # [B, S]
+        rows = W.T[labels]                             # [B, S, d]
+        label_logit = (h.float() * rows.float()).sum(-1)
+        return (lse - label_logit).mean()
+    h = copy_to(h, mesh)
+    logits = torch.matmul(h.float(), W.float())        # [B, S, V/tp]
+    m = reduce_(logits.detach().amax(-1), mesh, op=dist.ReduceOp.MAX)
+    lse = m + torch.log(reduce_from(
+        torch.exp(logits - m[..., None]).sum(-1), mesh))
+    Vl = W.shape[1]
+    lo = axis_index(mesh) * Vl
+    mine = (labels >= lo) & (labels < lo + Vl)
+    rows = W.T[(labels - lo).clamp(0, Vl - 1)]
+    label_logit = reduce_from(
+        (h.float() * rows.float()).sum(-1) * mine.float(), mesh)
     return (lse - label_logit).mean()
 
 
@@ -250,7 +305,7 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: Dict, mesh=None):
     Returns (ce + 0.01 * aux, {"ce", "aux"})."""
     h, aux = forward(params, cfg, tokens=batch.get("tokens"),
                      embeds=batch.get("embeds"), mesh=mesh, train=True)
-    ce = lm_loss_from_h(params, cfg, h, batch["labels"])
+    ce = lm_loss_from_h(params, cfg, h, batch["labels"], mesh)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -298,7 +353,7 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, caches: Dict, mesh=None,
 
     Returns (f32 logits [B, V], new caches); ``caches`` is not modified.
     Decode positions come from ``caches["attn"]["pos"][0]``."""
-    h = embed_tokens(params, tokens) if embeds is None else embeds
+    h = embed_tokens(params, tokens, mesh) if embeds is None else embeds
     B = h.shape[0]
 
     if cfg.family in ("dense", "moe"):
@@ -312,7 +367,8 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, caches: Dict, mesh=None,
     elif cfg.family == "ssm":
         new = []
         for i, p in enumerate(params.layers):
-            h, c = _ssm_layer(p, h, cfg, cache=_index(caches["ssm"], i))
+            h, c = _ssm_layer(p, h, cfg, cache=_index(caches["ssm"], i),
+                              mesh=mesh)
             new.append(c)
         new_caches = {"ssm": _stack(new)}
     else:  # hybrid
@@ -324,32 +380,34 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, caches: Dict, mesh=None,
             group = []
             for j in range(P):
                 h, c = _ssm_layer(params.layers[g * P + j], h, cfg,
-                                  cache=_index(group_c, j))
+                                  cache=_index(group_c, j), mesh=mesh)
                 group.append(c)
             main.append(_stack(group))
             h, c = _shared_attn_block(params.shared_attn, h, positions, cfg,
-                                      cache=_index(caches["attn"], g))
+                                      cache=_index(caches["attn"], g),
+                                      mesh=mesh)
             attn.append(c)
         new_tail = caches["ssm_tail"]
         if tail:
             tails = []
             for j in range(tail):
                 h, c = _ssm_layer(params.layers[G * P + j], h, cfg,
-                                  cache=_index(caches["ssm_tail"], j))
+                                  cache=_index(caches["ssm_tail"], j),
+                                  mesh=mesh)
                 tails.append(c)
             new_tail = _stack(tails)
         new_caches = {"ssm_main": _stack(main), "ssm_tail": new_tail,
                       "attn": _stack(attn)}
 
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return _logits(params, h)[:, 0], new_caches
+    return _logits(params, h, mesh)[:, 0], new_caches
 
 
 def prefill(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None):
     """Process the prompt; returns (last-position f32 logits, caches primed
     at S).  For attention families the cache window equals the prompt
     length (``grow_caches`` pads it for decoding)."""
-    h = embed_tokens(params, tokens) if embeds is None else embeds
+    h = embed_tokens(params, tokens, mesh) if embeds is None else embeds
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)
 
@@ -365,7 +423,7 @@ def prefill(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None):
     elif cfg.family == "ssm":
         new = []
         for p in params.layers:
-            h, c = _ssm_layer(p, h, cfg, cache=ssm_cache())
+            h, c = _ssm_layer(p, h, cfg, cache=ssm_cache(), mesh=mesh)
             new.append(c)
         new_caches = {"ssm": _stack(new)}
     else:
@@ -375,19 +433,20 @@ def prefill(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None):
             group = []
             for j in range(P):
                 h, c = _ssm_layer(params.layers[g * P + j], h, cfg,
-                                  cache=ssm_cache())
+                                  cache=ssm_cache(), mesh=mesh)
                 group.append(c)
             main.append(_stack(group))
             h, c = _shared_attn_block(params.shared_attn, h, positions, cfg,
-                                      cache={})
+                                      cache={}, mesh=mesh)
             attn.append(c)
         tails = []
         for j in range(tail):
-            h, c = _ssm_layer(params.layers[G * P + j], h, cfg, cache=ssm_cache())
+            h, c = _ssm_layer(params.layers[G * P + j], h, cfg,
+                              cache=ssm_cache(), mesh=mesh)
             tails.append(c)
         new_caches = {"ssm_main": _stack(main),
                       "ssm_tail": _stack(tails) if tails else None,
                       "attn": _stack(attn)}
 
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return _logits(params, h[:, -1]), new_caches
+    return _logits(params, h[:, -1], mesh), new_caches

@@ -10,6 +10,13 @@ Layout: d_inner = expand·d_model split into H = d_inner/P heads of dim P;
 B, C are single-group [*, N].  A short causal depthwise conv precedes x, B,
 C.  The conv is the reference's shifted f32 sum, not ``F.conv1d``: cuDNN
 convolutions may run in TF32 on the card.
+
+Under a ``model`` axis the leaves keep the reference's split (``in_proj``
+and ``conv`` by columns, ``out_proj`` by rows), but ``in_proj`` packs
+``[z, x, B, C, dt]`` into one dim, so a contiguous column slice is no
+Megatron split: each split leaf is gathered before use and every rank runs
+the whole block (the gathered leaf's gradient, the same on every rank, is
+reduce-scattered back and averaged).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from torch import nn
 
 from .common import dense_init_, normal_init_, param, rms_norm
 from .config import ModelConfig
+from .sharding import all_gather
 
 
 class SSM(nn.Module):
@@ -129,14 +137,32 @@ def ssd_chunked(x, dt, A_log, Bm, Cm, cfg: ModelConfig,
     return y.to(x.dtype), h
 
 
+class _Leaves:
+    """The SSM's leaves for one call: each split leaf gathered whole."""
+
+    def __init__(self, p: SSM, cfg: ModelConfig, mesh):
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        ch = di + 2 * N
+        for name, full, dim in (("in_proj", 2 * di + 2 * N + H, 1),
+                                ("conv", ch, 1), ("conv_bias", ch, 0),
+                                ("out_proj", di, 0)):
+            w = getattr(p, name)
+            setattr(self, name, w if w.shape[dim] == full
+                    else all_gather(w, mesh, dim=dim, mean=True))
+        for name in ("dt_bias", "A_log", "D", "norm"):
+            setattr(self, name, getattr(p, name))
+
+
 def ssm_block(p: SSM, u: torch.Tensor, cfg: ModelConfig,
-              cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+              cache: Optional[Dict] = None, mesh=None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One Mamba2 block.  u: [B, S, d].  With ``cache`` and S == 1: decode step.
 
     cache = {"conv": [B, Kw-1, Ch], "state": [B, H, P, N]}.
     """
     B, S, d = u.shape
     di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    p = _Leaves(p, cfg, mesh)
     zxbcdt = torch.matmul(u, p.in_proj)
     z, xr, Bm, Cm, dtr = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([xr, Bm, Cm], dim=-1)

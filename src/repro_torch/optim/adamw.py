@@ -1,6 +1,6 @@
 """AdamW with fp32 master weights, global-norm clipping, cosine schedule.
 
-Port of ``repro.optim.adamw`` for one device.  The state is the
+Port of ``repro.optim.adamw``.  The state is the
 reference's ``{"master", "mu", "nu", "step"}``; ``master``, ``mu`` and
 ``nu`` map each parameter's ``state_dict`` name to an f32 tensor (the
 checkpoint store and ``repro_torch.convert`` stack them into the
@@ -13,16 +13,27 @@ gradient by the global norm, then the moments, then the bias-corrected
 to each parameter's dtype.  It runs as ``torch._foreach_*`` calls over
 groups of leaves (at most ``_GROUP`` elements each, which bounds the
 temporaries), and updates ``master``, ``mu`` and ``nu`` in place.
+
+On a mesh (``mesh`` and the optimizer state's specs, ``launch.partition.
+opt_specs``) the state holds this rank's ZeRO slices: each data rank
+updates only its slice, then the new parameters are all-gathered over the
+data axes in their own dtype (ZeRO-1).  ``global_norm`` then counts every
+element once: a leaf split over an axis sums its squares over it, a leaf
+replicated over it is counted on the axis' first rank only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+
+from ..launch.mesh import dp_axes
+from ..launch.partition import gather_named
+from ..models.sharding import reduce_
 
 # elements per group of leaves that one round of foreach calls updates
 _GROUP = 1 << 26
@@ -75,17 +86,39 @@ def schedule(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos)
 
 
+def _split_axes(spec) -> set:
+    return {a for e in spec if e for a in ((e,) if isinstance(e, str) else e)}
+
+
 def global_norm(tensors: Union[Sequence[torch.Tensor],
-                               Mapping[str, torch.Tensor]]) -> torch.Tensor:
+                               Mapping[str, torch.Tensor]],
+                mesh=None, specs: Optional[Mapping] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32, as the
     reference sums them (leaf by leaf).  Not ``torch._foreach_norm`` or
     ``linalg.vector_norm``: on the CPU they sum a large f32 tensor in one
     running f32 total (4M elements: 8e-5 off), where ``sum`` sums
-    pairwise."""
-    if isinstance(tensors, Mapping):
-        tensors = list(tensors.values())
-    return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(t.float())) for t in tensors]).sum())
+    pairwise.
+
+    With ``mesh`` and ``specs`` (name -> spec of this rank's slices, a
+    mapping given as ``tensors``): each element of the whole tree once,
+    summed over the mesh."""
+    if mesh is None or mesh.size == 1:
+        if isinstance(tensors, Mapping):
+            tensors = list(tensors.values())
+        return torch.sqrt(torch.stack(
+            [torch.sum(torch.square(t.float())) for t in tensors]).sum())
+    axes = [a for a in mesh.axis_names if mesh.axis_size(a) > 1]
+    parts = []
+    for name, t in tensors.items():
+        split = _split_axes(specs[name])
+        if all(a in split or mesh.coord(a) == 0 for a in axes):
+            parts.append(torch.sum(torch.square(t.float())))
+    device = next(iter(tensors.values())).device
+    total = torch.stack(parts).sum() if parts else torch.zeros((),
+                                                               device=device)
+    for a in axes:
+        total = reduce_(total, mesh, a)
+    return torch.sqrt(total)
 
 
 def _groups(sizes: Sequence[int]) -> List[List[int]]:
@@ -100,7 +133,8 @@ def _groups(sizes: Sequence[int]) -> List[List[int]]:
 
 
 def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: Dict[str, Any],
-                 params: Mapping[str, torch.Tensor], cfg: OptConfig
+                 params: Mapping[str, torch.Tensor], cfg: OptConfig,
+                 mesh=None, specs: Optional[Mapping] = None
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any],
                             Dict[str, torch.Tensor]]:
     """One AdamW step.  ``grads`` and ``params`` map names (those of the
@@ -109,11 +143,14 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: Dict[str, Any],
     Returns ``(new_params, new_state, {"grad_norm", "lr"})``: the new
     parameters as fresh tensors of each parameter's dtype, and the state
     whose ``master``, ``mu`` and ``nu`` are the given ones, updated in
-    place, with ``step + 1``."""
+    place, with ``step + 1``.  With ``mesh`` and ``specs`` (the master's
+    specs), ``grads`` and the state hold this rank's ZeRO slices, and the
+    new parameters come back whole over the data axes, for every name of
+    ``params``."""
     step = opt_state["step"]
     lr = schedule(step, cfg)
     names = list(grads)
-    gnorm = global_norm([grads[n] for n in names])
+    gnorm = global_norm({n: grads[n] for n in names}, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     t = (step + 1).to(torch.float32)
     bc1 = 1 - cfg.b1 ** t
@@ -147,6 +184,8 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: Dict[str, Any],
         del upd
         for n, mm in zip(gn, m):
             new_params[n] = mm.to(params[n].dtype, copy=True)
+    if mesh is not None and mesh.size > 1:
+        new_params = gather_named(new_params, specs, mesh, dp_axes(mesh))
     new_state = {"master": opt_state["master"], "mu": opt_state["mu"],
                  "nu": opt_state["nu"], "step": step + 1}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -102,6 +102,10 @@ def test_import_leaves_out_jax_and_repro():
         "import repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.steps, repro_torch.launch.train\n"
         "import repro_torch.optim, repro_torch.runtime, repro_torch.data\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.partition\n"
+        "import repro_torch.launch.specs, repro_torch.models.sharding\n"
+        "import repro_torch.runtime.compression, repro_torch.runtime.elastic\n"
+        "import repro_torch.runtime.overlap\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', "
         f"{str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

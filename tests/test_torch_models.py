@@ -223,7 +223,8 @@ def test_route_and_moe_dense(arch):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-moe-16b"])
 def test_moe_a2a_one_shard(arch):
     """The one-shard body against the reference's moe_a2a under a 1x1 mesh;
-    more than one model shard raises."""
+    more than one model shard needs the experts split over a bound mesh
+    (``test_torch_distribution.py`` runs it), and raises without one."""
     jc, tc = cfgs(arch)
     jp, tp = moe_params(jc, tc)
     x = np.random.default_rng(7).standard_normal((4, 1, jc.d_model)).astype(
@@ -232,7 +233,7 @@ def test_moe_a2a_one_shard(arch):
     ty, taux = tlayers.moe_a2a(tp, t(x), tc, Mesh(1, 1))
     close(ty, jy, LAYER_TOL)
     close(taux, jaux, LAYER_TOL)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tlayers.moe_a2a(tp, t(x), tc, Mesh(2, 1))
 
 

@@ -412,5 +412,11 @@ def test_train_main_needs_a_card_for_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--data-mesh", "--model-mesh"])
 def test_train_main_one_device_only(tmp_path, flag):
-    with pytest.raises(NotImplementedError):
-        train.main(ARGS + [flag, "2", "--ckpt-dir", str(tmp_path)])
+    """A mesh axis of 2 is no longer one device: ``main`` spawns two gloo
+    processes, which train (the 2x2 mesh and its fault are
+    ``test_torch_distribution.py``'s)."""
+    run = train.main(ARGS + [flag, "2", "--steps", "2",
+                             "--ckpt-dir", str(tmp_path)])
+    assert run.backend == "gloo" and run.trainer is None
+    losses = run.summary["losses"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
