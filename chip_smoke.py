@@ -132,7 +132,17 @@ Phases, each of which must pass (any failure exits non-zero):
      in f32 at B = 2, S = 16 with
      no-drop capacity, ce and its gradient norm at 2x2 against one device;
      and a ``mesh train:`` JSON line; no kernel launch counter may move in
-     any rank.
+     any rank;
+ 12. the dry run (``repro_torch.launch.cost_analysis``) against the card,
+     in the same run: granite-moe-1b-a400m at phase 11's setting traced on
+     ``meta`` as rank 0 of a fake 2x2 world must count phase 11's rank 0's
+     collective calls and bytes exactly; one reduced arch per family (and
+     the vision stub) must count the same FLOPs on ``meta`` as
+     FlopCounterMode on the card's real train, prefill and decode steps;
+     the predicted peak memory at phase 10's 1x1 and phase 11's 2x2 within
+     20 % of their ``max_memory_allocated``; the roofline's three terms of
+     both beside the measured step times; a ``dryrun:`` JSON line per
+     check; no kernel launch, and at most 120 s.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the ``kernels``
@@ -224,9 +234,13 @@ MESH_PROBES = ("all_reduce f32", "all_reduce bf16", "all_gather_into_tensor",
                "reduce_scatter_tensor", "all_to_all_single",
                "batch_isend_irecv")
 MESH_PROBE_WAIT_S = 60
-HBM_BPS = 3.35e12
 F32_OPS = 67e12
-BF16_OPS = 989e12
+# phase 12: the dry run against the card; one reduced arch per family
+# (and the vision stub) for the FLOP checks, at these sizes
+DRY_ARCHS = ("codeqwen1.5-7b", "granite-moe-1b-a400m", "mamba2-1.3b",
+             "zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b")
+DRY_B, DRY_S, DRY_W = 2, 32, 64
+DRY_MEM_TOL, DRY_BUDGET_S = 0.2, 120.0
 TPU_KERNELS = {
     "bsr_matmul": "src/repro/kernels/bsr_matmul.py:81",
     "bsr_megakernel": "src/repro/kernels/bsr_matmul.py:279",
@@ -317,8 +331,24 @@ def device_ms(fn, runs=30, warm=5, tries=5):
     return None
 
 
+def hbm_bps():
+    """The card's HBM rate: the dry run's roofline constant
+    (``cost_analysis.HBM_BW``), so bounds here and there cannot drift."""
+    from repro_torch.launch.cost_analysis import HBM_BW
+
+    return HBM_BW
+
+
+def bf16_ops():
+    """The card's dense bf16 tensor-core rate (``cost_analysis.PEAK_FLOPS``;
+    F32_OPS, the f32 FMA rate, has no counterpart in the roofline)."""
+    from repro_torch.launch.cost_analysis import PEAK_FLOPS
+
+    return PEAK_FLOPS
+
+
 def bound_ms(n_bytes, n_ops, ops_rate=F32_OPS):
-    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / ops_rate
+    t_bytes, t_ops = n_bytes / hbm_bps(), n_ops / ops_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -814,7 +844,7 @@ def phase_moe():
                                       + wd.numel())
         nops = 4 * MOE_E * MOE_C * MOE_D * MOE_F
         b_ms, b_by = bound_ms(nbytes, nops, F32_OPS if dtype == torch.float32
-                              else BF16_OPS)
+                              else bf16_ops())
         plan = M.moe_tile_plan(MOE_E, MOE_C, MOE_D, MOE_F, dtype, rows)
         ctas = MOE_E * -(-MOE_C // plan.rows)
         # the entry point, or the kernel with the other bf16 row tile
@@ -2049,14 +2079,14 @@ def phase_lm_full(arch):
         call_ms = median_ms(step, runs=LM_TIMED_STEPS, warm=3)
         launches, host_top = lm_trace(step)
     w_bytes, c_bytes = lm_bytes(params, cfg, B, window)
-    b_ms = 1e3 * w_bytes / HBM_BPS
+    b_ms = 1e3 * w_bytes / hbm_bps()
     row = {"arch": arch, "params": n, "peak_bytes": peak,
            "prefill_ms": pre_ms, "decode_device_ms": dev_ms,
            "decode_call_ms": call_ms,
            "tok_per_s": report.tokens / report.seconds,
            "decode_tok_per_s": B / call_ms * 1e3,
            "bound_ms": b_ms, "weight_bytes": w_bytes, "cache_bytes": c_bytes,
-           "bound_with_cache_ms": 1e3 * (w_bytes + c_bytes) / HBM_BPS,
+           "bound_with_cache_ms": 1e3 * (w_bytes + c_bytes) / hbm_bps(),
            "device_launches_per_step": launches,
            "host_top_ms_per_step": host_top,
            "card_vs_cpu_worst": worst, "smallest_top2_margin": margin,
@@ -2255,7 +2285,7 @@ def train_bound(params, cfg, B, S):
         else mult * 2 * d * cfg.d_ff
     per_token = 4 * cfg.n_layers * (attn + ffn) + 3 * 2 * d * cfg.vocab
     flops = B * S * per_token
-    ms, by = bound_ms(n_bytes, flops, BF16_OPS)
+    ms, by = bound_ms(n_bytes, flops, bf16_ops())
     return ms, by, n_bytes, flops
 
 
@@ -2382,12 +2412,14 @@ def phase_train():
           f"{losses[-1]:.4f}, fault run bit-equal to the clean run, "
           f"checkpoint restored bit for bit ({t1 - t0:.1f} s for the "
           f"reduced archs, {t2 - t1:.1f} s for the entry point)")
-    print("train: " + json.dumps(phase_train_full()))
+    row = phase_train_full()
+    print("train: " + json.dumps(row))
     check(kernel_counts() == before,
           f"a hand-written kernel launched during training: "
           f"{before} -> {kernel_counts()}")
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s; no hand-written "
           f"kernel launched")
+    return row
 
 
 # --------------------------------------------------------------------------- #
@@ -2909,6 +2941,168 @@ def phase_mesh():
           f"{before} -> {kernel_counts()}")
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s; no hand-written "
           f"kernel launched in any rank")
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: the dry run's cost analysis against the card
+# --------------------------------------------------------------------------- #
+
+def _meta_like(tree):
+    if isinstance(tree, dict):
+        return {k: _meta_like(v) for k, v in tree.items()}
+    return None if tree is None else torch.empty_like(tree, device="meta")
+
+
+def dry_step(cfg, kind, device):
+    """(step, args) of one reduced ``kind`` step (train, prefill, decode):
+    f32 weights from seed 0 and seeded inputs on ``device``; on ``meta``
+    the same shapes."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models import encdec, lm
+    from repro_torch.optim import OptConfig, adamw_init
+
+    on = (lambda t: _meta_like(t)) if device == "meta" else \
+        (lambda t: to_device(t, device))
+    params = specs.params_shape(cfg, dtype=torch.float32) \
+        if device == "meta" else lm_init(cfg, device)
+    batch = on(train_batch(cfg, seed=3, b=DRY_B, s=DRY_S))
+    if kind == "train":
+        params.requires_grad_(True)
+        return make_train_step(cfg, OptConfig()), (params, adamw_init(params),
+                                                    batch)
+    params.requires_grad_(False)
+    tok = batch.pop("labels")[:, :1].contiguous()
+    if kind == "prefill":
+        return make_prefill_step(cfg), (params, batch)
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            caches = encdec.make_dec_caches(params, cfg, batch["src_embeds"],
+                                            DRY_W)
+    else:
+        caches = lm.make_caches(cfg, DRY_B, DRY_W, device=device)
+    return make_serve_step(cfg), (params, caches, tok)
+
+
+def dry_flops():
+    """Each reduced arch's train, prefill and decode step: FlopCounterMode
+    on the card's real step against ``analyze_step`` on meta."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import cost_analysis as ca
+
+    rows = []
+    for arch in DRY_ARCHS:
+        cfg = dataclasses.replace(reduced(get_config(arch)), remat=True,
+                                  microbatch=2, attn_chunk=8)
+        for kind in ("train", "prefill", "decode"):
+            grad = torch.enable_grad if kind == "train" else torch.no_grad
+            step, args = dry_step(cfg, kind, "cuda")
+            with grad(), FlopCounterMode(display=False) as counter:
+                step(*args)
+            torch.cuda.synchronize()
+            del step, args
+            step, args = dry_step(cfg, kind, "meta")
+            with grad():
+                cost, _ = ca.analyze_step(step, *args)
+            rows.append({"arch": cfg.name, "kind": kind,
+                         "card_flops": counter.get_total_flops(),
+                         "meta_flops": cost.flops})
+            check(cost.flops == counter.get_total_flops(),
+                  f"dry run FLOPs of {cfg.name} {kind}: meta {cost.flops} "
+                  f"!= card {counter.get_total_flops()}")
+    return rows
+
+
+def dry_trace(mesh_shape):
+    """TRAIN_FULL at phase 10's and 11's setting (bf16, B = 8, S = 128,
+    remat on, one microbatch) traced on meta as rank 0 of a fake world of
+    ``data x model`` ranks: (cost, memory, roofline)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.sharding import axes_from_mesh, set_mesh
+
+    cfg = dataclasses.replace(get_config(TRAIN_FULL), microbatch=1)
+    shape = ShapeConfig("phase_10_11", 128, 8, "train")
+    with dryrun.fake_world(mesh_shape[0] * mesh_shape[1]):
+        mesh = make_test_mesh(*mesh_shape).bind()
+        axes_from_mesh(mesh)
+        set_mesh(mesh)
+        step, args = dryrun.build_cell(cfg, shape, mesh)
+        cost, mem = ca.analyze_step(step, *args)
+        del step, args
+    rl = ca.roofline(cost, ca.collective_stats(cost), mesh.size,
+                     ca.model_flops_for(cfg, shape), mem)
+    return cost, mem, rl
+
+
+def phase_dryrun(train_row, mesh_row):
+    """Phase 12: the dry run's cost analysis against what phases 10 and 11
+    measured in this run, and FLOPs against real steps on the card; no
+    hand-written kernel may launch."""
+    from repro_torch.launch.cost_analysis import HLO_NAMES
+
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    cost22, mem22, rl22 = dry_trace((2, 2))
+    rank0 = mesh_row["ranks"][0]["collectives_per_step"]
+    card = {"calls": {HLO_NAMES[k]: v for k, v in rank0["calls"].items()},
+            "bytes": {HLO_NAMES[k]: v for k, v in rank0["bytes"].items()}}
+    line = {"check": "collectives", "mesh": "2x2", "rank": 0,
+            "dry_run": {"calls": cost22.coll_calls,
+                        "bytes": cost22.coll_by_op,
+                        "total_bytes": cost22.coll_bytes},
+            "phase_11": dict(card, total_bytes=sum(card["bytes"].values()))}
+    print("dryrun: " + json.dumps(line))
+    check(cost22.coll_calls == card["calls"]
+          and cost22.coll_by_op == card["bytes"],
+          f"dry run collectives differ from phase 11's rank 0: {line}")
+    t1 = time.perf_counter()
+    flops = dry_flops()
+    print("dryrun: " + json.dumps({"check": "flops", "rows": flops}))
+    t2 = time.perf_counter()
+    cost11, mem11, rl11 = dry_trace((1, 1))
+    measured = {"1x1": train_row["peak_bytes"],
+                "2x2": max(r["peak_bytes"] for r in mesh_row["ranks"])}
+    mems = []
+    for name, mem in (("1x1", mem11), ("2x2", mem22)):
+        ratio = mem.peak_bytes / measured[name]
+        mems.append({"mesh": name, "predicted_peak_bytes": mem.peak_bytes,
+                     "memory": mem.record(),
+                     "max_memory_allocated": measured[name], "ratio": ratio})
+    print("dryrun: " + json.dumps({"check": "memory", "rows": mems}))
+    check(all(abs(m["ratio"] - 1) <= DRY_MEM_TOL for m in mems),
+          f"dry run peak memory off by more than {DRY_MEM_TOL:.0%}: {mems}")
+    roof = []
+    for name, rl, dev, call in (
+            ("1x1", rl11, [train_row["step_device_ms"]],
+             [train_row["step_call_ms"]]),
+            ("2x2", rl22, [r["step_device_ms"] for r in mesh_row["ranks"]],
+             [1e3 * x for r in mesh_row["ranks"] for x in r["step_call_s"]])):
+        roof.append({"mesh": name, "compute_ms": 1e3 * rl.compute_s,
+                     "memory_ms": 1e3 * rl.memory_s,
+                     "collective_ms": 1e3 * rl.collective_s,
+                     "dominant": rl.dominant, "flops_per_dev": rl.flops_per_dev,
+                     "useful_ratio": rl.useful_ratio,
+                     "measured_device_ms": dev,
+                     "measured_call_ms": [min(call), max(call)]})
+    print("dryrun: " + json.dumps({"check": "roofline", "rows": roof}))
+    check(kernel_counts() == before,
+          f"a hand-written kernel launched during phase 12: {before} -> "
+          f"{kernel_counts()}")
+    took = time.perf_counter() - t0
+    print("dryrun: " + json.dumps({
+        "check": "time", "seconds": took, "collectives_s": t1 - t0,
+        "flops_s": t2 - t1, "memory_s": time.perf_counter() - t2}))
+    check(took <= DRY_BUDGET_S, f"phase 12 took {took:.1f} s, over its "
+          f"{DRY_BUDGET_S:.0f} s")
+    print(f"phase 12 took {took:.1f} s; no hand-written kernel launched")
 
 
 def main() -> int:
@@ -2948,8 +3142,9 @@ def main() -> int:
         phase_runtime()
         sharded_launches = phase_sharded(layers, rng, Engine, plans["f32"])
         phase_lm()
-        phase_train()
-        phase_mesh()
+        train_row = phase_train()
+        mesh_row = phase_mesh()
+        phase_dryrun(train_row, mesh_row)
         kernels = kernel_line(entries, launches, main_err, sharded_launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -7,7 +7,7 @@ from typing import Dict
 
 import torch
 
-from ..models import encdec, lm
+from ..models import encdec, lm, tripcount
 from ..models.config import ModelConfig
 from ..models.sharding import reduce_
 from ..optim import OptConfig, adamw_init, adamw_update
@@ -75,13 +75,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh=None,
         if n_micro > 1:
             mb = B // dp_sz // n_micro
             acc, losses = None, []
-            for i in range(n_micro):
+            # the first microbatch's gradients are the accumulator itself
+            for i in tripcount.trips(n_micro, exact=2):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 lval, g = grads_of(params, plist, micro)
                 acc = g if acc is None else torch._foreach_add(acc, g)
                 losses.append(lval)
             grads = torch._foreach_div(acc, n_micro)
-            lval = torch.stack(losses).mean()
+            lval = torch.stack(tripcount.full(losses, n_micro, exact=2)).mean()
         else:
             lval, grads = grads_of(params, plist, batch)
         grads = dict(zip(names, grads))
@@ -106,11 +107,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh=None,
 def make_prefill_step(cfg: ModelConfig, mesh=None):
     def prefill_step(params, batch):
         if cfg.family == "encdec":
-            enc_out = encdec.encode(params, cfg, batch["src_embeds"])
-            h = encdec.decode_train(params, cfg, enc_out, batch["tgt_tokens"])
-            logits = torch.matmul(h[:, -1].float(),
-                                  encdec.unembed_matrix(params).float())
-            return logits, enc_out
+            enc_out = encdec.encode(params, cfg, batch["src_embeds"],
+                                    mesh=mesh)
+            h = encdec.decode_train(params, cfg, enc_out, batch["tgt_tokens"],
+                                    mesh=mesh)
+            return lm._logits(params, h[:, -1], mesh), enc_out
         return lm.prefill(params, cfg, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"), mesh=mesh)
 
@@ -122,7 +123,8 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
 
     def serve_step(params, caches, tokens):
         if cfg.family == "encdec":
-            logits, new_caches = encdec.decode_step(params, cfg, tokens, caches)
+            logits, new_caches = encdec.decode_step(params, cfg, tokens, caches,
+                                                    mesh=mesh)
         else:
             logits, new_caches = lm.decode_step(params, cfg, tokens, caches,
                                                 mesh=mesh)

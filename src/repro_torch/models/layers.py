@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -43,6 +44,7 @@ from .sharding import (
     reduce_from,
     scatter_seq,
 )
+from . import tripcount
 
 
 # =============================================================================
@@ -129,7 +131,7 @@ def _heads(p: Attention, cfg: ModelConfig, mesh):
              and (Hl % G == 0 or G % Hl == 0))
     if not split:
         ws = [w if w.shape == full else all_gather(
-                  w, mesh, dim=int(w.shape[0] != full[0]), mean=True)
+                  w, mesh, dim=int(w.shape[0] == full[0]), mean=True)
               for w, full in ((p.wq, (p.wq.shape[0], H * hd)),
                               (p.wk, (p.wk.shape[0], K * hd)),
                               (p.wv, (p.wv.shape[0], K * hd)),
@@ -176,12 +178,12 @@ def _flash(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0):
     dev = q.device
     kf, vf = k.float(), v.float()
     outs = []
-    for iq in range(Sq // cq):
+    for iq in tripcount.trips(Sq // cq):
         qi = q[:, iq * cq:(iq + 1) * cq].float()
         m = torch.full((B, K, G, cq), -torch.inf, device=dev)
         l = torch.zeros((B, K, G, cq), device=dev)
         acc = torch.zeros((B, cq, K, G, hd), device=dev)
-        for jk in range(Sk // ck):
+        for jk in tripcount.trips(Sk // ck):
             kj = kf[:, jk * ck:(jk + 1) * ck]
             vj = vf[:, jk * ck:(jk + 1) * ck]
             s = torch.einsum("bqkgh,bskh->bkgqs", qi, kj) * scale
@@ -206,7 +208,7 @@ def _flash(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0):
             m = m_new
         lsafe = torch.clamp(l, min=1e-20)
         outs.append((acc / lsafe.permute(0, 3, 1, 2)[..., None]).to(q.dtype))
-    return torch.cat(outs, dim=1)[:, :Sq_orig]
+    return torch.cat(tripcount.full(outs, Sq // cq), dim=1)[:, :Sq_orig]
 
 
 def attention(
@@ -230,10 +232,15 @@ def attention(
     ``dynamic_update_slice``, so a step at ``pos >= window`` overwrites the
     last slot — and attends to the slots ``<= pos``.  Caches are not
     modified; the step returns new ones.  Under a ``model`` axis each rank
-    runs its heads (``_heads``), and caches hold those heads.
+    runs its heads (``_heads``), and the caches of a prefill hold those
+    heads; a decode step takes the reference's layout, the window split
+    over ``model`` (``_decode_split``).
     """
     B, S, d = x.shape
     hd = cfg.hd
+    if cache is not None and S == 1 and axis_size(mesh) > 1 \
+            and ("pos" in cache or (cross and "k" in cache)):
+        return _decode_split(p, x, positions, cfg, cache, cross, mesh)
     wq, wk, wv, wo, H, K, split = _heads(p, cfg, mesh)
     G = H // K
     if split:
@@ -321,6 +328,84 @@ def attention(
     elif cache is not None:
         out_cache = {"k": k, "v": v}
     return out, out_cache
+
+
+def _decode_split(p: Attention, x, positions, cfg: ModelConfig, cache: Dict,
+                  cross: bool, mesh):
+    """One decode step under a ``model`` axis on the reference's cache
+    layout (``launch.partition.cache_specs``): each rank holds a slice of
+    the window (of the source, for a cross-attention cache) for every kv
+    head.  The step's q, k and v columns are gathered whole, the rank whose
+    slice holds the write slot writes it, and each rank attends over its
+    slice; the softmax's max, sum and weighted values are reduced over
+    ``model``, and ``wo``'s row split sums the output as in training."""
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // K
+
+    def cols(w, n):
+        y = torch.matmul(x, w)
+        return y if w.shape[1] == n else all_gather(y, mesh, dim=-1)
+
+    q = cols(p.wq, H * hd).reshape(B, 1, H, hd)
+    span = cache["k"].shape[1]
+    lo = axis_index(mesh) * span
+    quant = "k_scale" in cache
+    if cross:
+        valid = None
+        ck, cv = cache["k"], cache["v"]
+        new_cache = cache
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(cols(p.wk, K * hd).reshape(B, 1, K, hd), positions,
+                       cfg.rope_theta)
+        v = cols(p.wv, K * hd).reshape(B, 1, K, hd)
+        pos = cache["pos"]
+        local = pos.clamp(0, span * axis_size(mesh) - 1).reshape(1).long() - lo
+        here = (local >= 0) & (local < span)
+        idx = local.clamp(0, span - 1)
+
+        def write(buf, val):
+            old = buf.index_select(1, idx)
+            return buf.index_copy(1, idx, torch.where(here, val.to(buf.dtype),
+                                                      old))
+
+        if quant:
+            k8, ks = kv_quantize(k)
+            v8, vs = kv_quantize(v)
+            ck, cv = write(cache["k"], k8), write(cache["v"], v8)
+            new_cache = {"k": ck, "v": cv,
+                         "k_scale": write(cache["k_scale"], ks),
+                         "v_scale": write(cache["v_scale"], vs),
+                         "pos": pos + 1}
+        else:
+            ck, cv = write(cache["k"], k), write(cache["v"], v)
+            new_cache = {"k": ck, "v": cv, "pos": pos + 1}
+        valid = lo + torch.arange(span, device=x.device) <= pos
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.reshape(B, 1, K, G, hd).float(),
+                     ck.float())
+    if quant:
+        s = s * new_cache["k_scale"][..., 0].permute(0, 2, 1)[:, :, None,
+                                                               None, :]
+    s = s / np.sqrt(hd)
+    if valid is not None:
+        s = torch.where(valid, s, -torch.inf)
+    m = reduce_(s.amax(-1, keepdim=True), mesh, op=dist.ReduceOp.MAX)
+    pr = torch.exp(s - m)
+    den = reduce_from(pr.sum(-1), mesh)                                # [B,K,G,1]
+    if quant:
+        pr = pr * new_cache["v_scale"][..., 0].permute(0, 2, 1)[:, :, None,
+                                                                None, :]
+    o = reduce_from(torch.einsum("bkgqs,bskh->bqkgh", pr, cv.float()), mesh)
+    o = (o / den.permute(0, 3, 1, 2)[..., None]).to(x.dtype).reshape(
+        B, 1, H * hd)
+    if p.wo.shape[0] < H * hd:
+        r0 = axis_index(mesh) * p.wo.shape[0]
+        out = row_parallel_matmul(o[..., r0:r0 + p.wo.shape[0]], p.wo, cfg,
+                                  mesh)
+    else:
+        out = torch.matmul(o, p.wo)
+    return out, new_cache
 
 
 def make_cache(cfg: ModelConfig, batch: int, length: int,

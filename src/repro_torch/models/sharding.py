@@ -122,9 +122,12 @@ GLOO_CUDA = frozenset({"all_reduce", "all_gather_into_tensor",
 
 class CollectiveStats:
     """Calls and bytes (each rank's input) per collective, and the bytes a
-    host round trip moved (out and back)."""
+    host round trip moved (out and back).  ``weight``, when set, gives how
+    many calls the one being made counts for (a cost trace's loop iteration
+    that stands for several: ``launch.cost_analysis``)."""
 
     def __init__(self):
+        self.weight = None
         self.reset()
 
     def reset(self) -> None:
@@ -153,8 +156,9 @@ def _staged(name: str, group, x: torch.Tensor) -> bool:
 def _buffers(name: str, group, x: torch.Tensor, out_numel: int):
     """Count a call of ``name``: (``x`` contiguous, a fresh flat output of
     ``out_numel`` elements, staged), both on the host where ``_staged``."""
-    STATS.calls[name] += 1
-    STATS.bytes[name] += x.numel() * x.element_size()
+    w = 1 if STATS.weight is None else STATS.weight()
+    STATS.calls[name] += w
+    STATS.bytes[name] += w * x.numel() * x.element_size()
     staged = _staged(name, group, x)
     inp = (x.detach().to("cpu") if staged else x.detach()).contiguous()
     if staged:

@@ -29,7 +29,7 @@ from torch import nn
 
 from .common import dense_init_, normal_init_, param, rms_norm
 from .config import ModelConfig
-from .sharding import all_gather
+from .sharding import all_gather, axis_index, axis_size
 
 
 class SSM(nn.Module):
@@ -169,7 +169,14 @@ def ssm_block(p: SSM, u: torch.Tensor, cfg: ModelConfig,
 
     if cache is not None and S == 1:
         # ---- decode: O(1) state update --------------------------------------
-        window = torch.cat([cache["conv"], xbc], dim=1)              # [B,Kw,Ch]
+        conv_c, state = cache["conv"], cache["state"]
+        # the reference's layout under ``model`` (cache_specs): heads and
+        # conv channels split; every rank runs the whole block
+        split = state.shape[1] < H
+        if split:
+            conv_c = all_gather(conv_c, mesh, dim=2)
+            state = all_gather(state, mesh, dim=1)
+        window = torch.cat([conv_c, xbc], dim=1)                     # [B,Kw,Ch]
         conv_out = torch.einsum("bkc,kc->bc", window.float(), p.conv.float())
         conv_out = F.silu(conv_out + p.conv_bias.float())
         xr1 = conv_out[:, :di].reshape(B, H, Pd)
@@ -177,14 +184,19 @@ def ssm_block(p: SSM, u: torch.Tensor, cfg: ModelConfig,
         Cm1 = conv_out[:, di + N:]
         dt1 = F.softplus(dtr[:, 0].float() + p.dt_bias)              # [B,H]
         a = torch.exp(-torch.exp(p.A_log)[None] * dt1)                # [B,H]
-        h = a[:, :, None, None] * cache["state"] + torch.einsum(
+        h = a[:, :, None, None] * state + torch.einsum(
             "bh,bhp,bn->bhpn", dt1, xr1, Bm1)
         y = torch.einsum("bn,bhpn->bhp", Cm1, h)
         y = y + p.D[None, :, None] * xr1
         y = y.reshape(B, 1, di) * F.silu(z.float())
         y = rms_norm(y.to(u.dtype), p.norm, cfg.norm_eps)
         out = torch.matmul(y, p.out_proj)
-        return out, {"conv": window[:, 1:], "state": h}
+        conv_c = window[:, 1:]
+        if split:
+            i, n = axis_index(mesh), axis_size(mesh)
+            conv_c = conv_c.chunk(n, dim=2)[i]
+            h = h.chunk(n, dim=1)[i]
+        return out, {"conv": conv_c, "state": h}
 
     # ---- full sequence -------------------------------------------------------
     xbc = _causal_conv(xbc, p.conv, p.conv_bias)

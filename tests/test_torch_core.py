@@ -10,6 +10,7 @@ fault-tolerance module are copies whose only changes are import lines; the
 port imports neither ``jax`` nor ``ml_dtypes`` nor anything of ``repro``.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -90,11 +91,30 @@ def test_copy_differs_only_in_imports(rel):
         line.split()[1].split(".")[0] in ("jax", "repro") for line in imports)
 
 
+def _example_imports():
+    """The modules the example twins import (read off their source: a twin
+    runs when imported)."""
+    mods = set()
+    for path in sorted((ROOT / "examples").glob("*_torch.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                mods.add(node.module)
+    return sorted(mods)
+
+
 def test_import_leaves_out_jax_and_repro():
-    """Importing every port module, and chip_smoke.py, loads no jax and no
-    module of the reference package."""
+    """Importing every port module, chip_smoke.py and everything the example
+    twins import loads no jax and no module of the reference package."""
+    twins = _example_imports()
+    assert len(list((ROOT / "examples").glob("*_torch.py"))) == 4
+    assert not [m for m in twins if m.split(".")[0] in ("jax", "repro")]
     code = (
         "import importlib.util, sys\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.cost_analysis\n"
+        "import repro_torch.models.tripcount\n"
+        + "".join(f"import {m}\n" for m in twins) +
         "import repro_torch, repro_torch.launch.serve, repro_torch.kernels\n"
         "import repro_torch.kernels._build, repro_torch.kernels.moe_ffn\n"
         "import repro_torch.obs, repro_torch.checkpoint\n"
