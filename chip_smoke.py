@@ -80,11 +80,15 @@ Phases, each of which must pass (any failure exits non-zero):
      beside the unsharded megakernel and ``--no-fuse``; and ``Mesh(2, 1)``
      as two processes on the one card through ``gloo`` all-gathers, where
      this torch's gloo takes CUDA tensors (else it says so);
-  9. LM serving (``serve --arch``, no hand-written kernel on its path): all
-     ten architectures reduced through ``serve_lm`` (``--batch 4
-     --prompt-len 32 --gen 16 --requests 8``), every request given 16
-     tokens, prefill and first decode-step logits within 1e-4 (of max
-     |logit|) of the same weights on the CPU; then mamba2-1.3b and
+  9. LM serving (``serve --arch``, no hand-written kernel on its path; its
+     decode step a CUDA graph, ``steps.CapturedServeStep``): all ten
+     architectures reduced through ``serve_lm`` (``--batch 4 --prompt-len
+     32 --gen 16 --requests 8``), every request given 16 tokens, one graph
+     replay per decode step (the replay counter) and one capture per batch
+     shape, prefill and first decode-step logits within 1e-4 (of max
+     |logit|) of the same weights on the CPU, and the captured step's
+     tokens equal to the eager step's over 15 steps from the same caches,
+     its logits within 1e-6 of max |logit|; then mamba2-1.3b and
      granite-moe-1b-a400m at full width in f32: ``serve_lm`` at the
      reference's defaults, the reference's prefill-then-decode consistency
      test within 5e-3 (no-drop capacity for the MoE), the same weights on
@@ -92,10 +96,16 @@ Phases, each of which must pass (any failure exits non-zero):
      greedy tokens equal wherever the top-2 margin exceeds the error), and
      an ``lm:`` JSON line with the peak memory, prefill time, decode-step
      device and call time, tokens/s, launches and host ops per step, and
-     the step's bound (its f32 weight bytes over 3.35 TB/s); every kernel
+     the step's bound (its f32 weight bytes over 3.35 TB/s); beside them
+     the captured step's capture time, device and call time per token,
+     device and host launches per token, and the bytes one in-place step
+     writes into its caches (its slots only: no window copied; the
+     functional step's window copies for contrast); the captured tokens
+     equal to the eager step's over every generated step; every kernel
      launch counter must be unchanged across the phase;
- 10. training (``repro_torch.launch.train``, no hand-written kernel on its
-     path): one arch per family and internvl2-26b's ``embeds`` batches,
+ 10. training (``repro_torch.launch.train``; every AdamW update one launch
+     of the fused kernel, ``kernels/csrc/adamw.cu``, per group of leaves):
+     one arch per family and internvl2-26b's ``embeds`` batches,
      reduced, in f32 with remat on: one ``make_train_step`` on the card
      against the same weights and batch on the CPU (loss within 1e-5,
      ``grad_norm`` within 1e-4, the new master within 1e-2 * lr plus
@@ -112,10 +122,16 @@ Phases, each of which must pass (any failure exits non-zero):
      gradient norm on the card against the CPU with the same weights; and a
      ``train:`` JSON line with the parameter count, peak memory, the step's
      device and call time, tokens/s, launches and host ops per step, its
-     bound, the checkpoint's save and restore time; every kernel launch
-     counter must be unchanged across the phase;
- 11. training on a ``data x model`` mesh, one process per mesh slot (no
-     hand-written kernel on its path): which collectives this torch's
+     bound, the checkpoint's save and restore time; the fused AdamW kernel
+     launched once per group in every step of ``main`` and of
+     ``train_step``, bit-equal to its plain version for one update of
+     every group on the full-width state (bf16 and f32 parameters), and an
+     ``adamw:`` JSON line with its time over one update beside its bytes
+     bound, its plain version's and ``torch._fused_adamw_``'s; no other
+     kernel launch counter may move;
+ 11. training on a ``data x model`` mesh, one process per mesh slot (the
+     fused AdamW kernel on each rank's ZeRO slices, launched in every
+     rank): which collectives this torch's
      ``gloo`` takes on CUDA tensors (two ranks on the card); then four
      ranks on the card at 2x2, reduced, f32: one step per family against
      the one-device step on the card from the same weights and batch (loss
@@ -123,7 +139,12 @@ Phases, each of which must pass (any failure exits non-zero):
      bound; for the MoE, whose aux loss is a per-shard estimator, ce and
      its gradient norm, and the loss differing by 0.01 x the aux losses'
      difference), ``moe_a2a`` against the dense dispatch, the ring matmul
-     and ``quantized_psum``; granite-moe-1b-a400m at full width through
+     and ``quantized_psum``; decode on the mesh per family against one
+     device in each rank (prefill on the mesh, its caches in
+     ``cache_specs``' layout, ``grow_caches`` on the mesh, three steps,
+     the last past the window; a KV window of 7, whole on every rank, and
+     mamba2 with 3 heads and 128 conv channels among them) within 1e-5;
+     granite-moe-1b-a400m at full width through
      ``main --data-mesh 2 --model-mesh 2`` at its defaults (finite and
      falling losses, the first near ln(vocab)), its last checkpoint
      resharded onto 2x1 by two processes and held against the files bit
@@ -131,8 +152,8 @@ Phases, each of which must pass (any failure exits non-zero):
      from ``main``, device time from a trace, collectives, peak memory);
      in f32 at B = 2, S = 16 with
      no-drop capacity, ce and its gradient norm at 2x2 against one device;
-     and a ``mesh train:`` JSON line; no kernel launch counter may move in
-     any rank;
+     and a ``mesh train:`` JSON line; no BSR or MoE kernel launch counter
+     may move in any rank;
  12. the dry run (``repro_torch.launch.cost_analysis``) against the card,
      in the same run: granite-moe-1b-a400m at phase 11's setting traced on
      ``meta`` as rank 0 of a fake 2x2 world must count phase 11's rank 0's
@@ -170,6 +191,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 SIZES = [1024, 4096, 1024]
@@ -210,6 +232,10 @@ GLOO_TIMEOUT_S = 300.0
 LM_FULL = ("mamba2-1.3b", "granite-moe-1b-a400m")
 LM_PROMPT, LM_GEN, LM_REDUCED_REQUESTS = 32, 16, 8
 LM_DEVICE_TOL, LM_FULL_TOL, LM_CONSISTENCY_TOL = 1e-4, 1e-3, 5e-3
+# the captured decode step against the eager one on the same caches, of
+# max |logit|: the same kernels in the same order, but the MoE combine's
+# index_add_ sums with atomics, in an order that may change between runs
+LM_GRAPH_TOL = 1e-6
 LM_CPU_STEPS, LM_TIMED_STEPS, LM_PROFILED_STEPS = 2, 10, 5
 # phase 10: one arch per family (and the vision stub's embeds), reduced,
 # card vs CPU (TRAIN_LOSS_TOL, TRAIN_GNORM_TOL); the entry point reduced,
@@ -234,6 +260,18 @@ MESH_PROBES = ("all_reduce f32", "all_reduce bf16", "all_gather_into_tensor",
                "reduce_scatter_tensor", "all_to_all_single",
                "batch_isend_irecv")
 MESH_PROBE_WAIT_S = 60
+# phase 11's decode on the mesh against one device (tests/test_torch_
+# dryrun.py's tolerance): (name, arch, config changes, KV window)
+MESH_DECODE = (
+    ("dense", "codeqwen1.5-7b", {}, 8),
+    ("dense window 7", "codeqwen1.5-7b", {}, 7),
+    ("moe", "granite-moe-1b-a400m", {"capacity_factor": 4.0}, 8),
+    ("ssm", "mamba2-1.3b", {}, 8),
+    ("ssm H 3 Ch 128", "mamba2-1.3b", {"d_model": 48, "ssm_headdim": 32}, 8),
+    ("hybrid", "zamba2-1.2b", {}, 8),
+    ("encdec", "seamless-m4t-medium", {}, 8),
+)
+MESH_DECODE_TOL = 1e-5
 F32_OPS = 67e12
 # phase 12: the dry run against the card; one reduced arch per family
 # (and the vision stub) for the FLOP checks, at these sizes
@@ -246,12 +284,15 @@ TPU_KERNELS = {
     "bsr_megakernel": "src/repro/kernels/bsr_matmul.py:279",
     "bsr_megakernel_gated": "src/repro/kernels/bsr_matmul.py:279",
     "moe_ffn": "src/repro/kernels/moe_ffn.py:47",
+    # no Pallas kernel: XLA's fusion of the reference's update under jit
+    "adamw": "src/repro/optim/adamw.py:55",
 }
 SOURCES = {
     "bsr_matmul": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
     "bsr_megakernel": "src/repro_torch/kernels/csrc/bsr_kernels.cu",
     "bsr_megakernel_gated": "src/repro_torch/kernels/csrc/bsr_kernels.cu",
     "moe_ffn": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+    "adamw": "src/repro_torch/kernels/csrc/adamw.cu",
 }
 
 
@@ -370,7 +411,7 @@ def phase_env():
 # the kernels whose registers and spills phase 2 reports, as their mangled
 # names begin
 NEW_KERNELS = ("bsr_matmul_kernel", "bsr_megakernel_kernel",
-               "moe_bf16_kernel", "moe_f32_kernel")
+               "moe_bf16_kernel", "moe_f32_kernel", "adamw_kernel")
 
 
 def ptxas_summary(log):
@@ -1009,6 +1050,19 @@ def kernel_line(entries, launches, main_err, sharded_launches):
         if row["name"] == "bsr_matmul":
             row["sharded_launches"] = sharded_launches
     return rows
+
+
+def adamw_kernel_row(train_row):
+    """The fused AdamW kernel's ``kernels`` row from phase 10: its launches
+    in ``main``'s full-width run (the training main path), 0 for the error
+    (bit-equal to its plain version), its times over one whole update."""
+    opt = train_row["adamw"]
+    return {"name": "adamw", "route": "cuda", "source": SOURCES["adamw"],
+            "replaces": TPU_KERNELS["adamw"],
+            "launches": opt["main_launches"], "max_abs_err": 0.0,
+            "ms": opt["ms"], "plain_ms": opt["plain_ms"],
+            "bound_ms": opt["bound_ms"], "bound_by": opt["bound_by"],
+            "library_ms": opt["library_ms"]}
 
 
 def phase_trace(server, args):
@@ -1915,11 +1969,16 @@ def phase_lm_reduced(arch, requests):
                    str(LM_PROMPT), "--gen", str(LM_GEN), "--requests",
                    str(requests))
     params = lm_init(cfg)
-    report = serve.serve_lm(cfg, args, params=params)
+    report, replays = serve_captured(cfg, args, params)
     check(len(report.sequences) == requests and all(
         len(seq) == LM_GEN for seq in report.sequences)
         and report.tokens == requests * LM_GEN,
         f"{arch}: {len(report.sequences)} sequences, {report.tokens} tokens")
+    same, graph_err, bit, _ = captured_vs_eager(params, cfg, 4, LM_PROMPT,
+                                                LM_GEN)
+    check(same and graph_err <= LM_GRAPH_TOL,
+          f"{arch}: captured vs eager decode: tokens equal {same}, logits "
+          f"{graph_err:.3e} of max |logit| (tolerance {LM_GRAPH_TOL})")
     rng = np.random.default_rng(2)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, LM_PROMPT)))
     enc_in = torch.from_numpy((rng.standard_normal(
@@ -1932,7 +1991,29 @@ def phase_lm_reduced(arch, requests):
     check(max(errs) <= LM_DEVICE_TOL,
           f"{arch}: card vs CPU logits, prefill {errs[0]:.3e}, decode "
           f"{errs[1]:.3e} (tolerance {LM_DEVICE_TOL})")
-    return max(errs), report.tokens / report.seconds
+    return {"card_vs_cpu": max(errs), "tok_per_s":
+            report.tokens / report.seconds, "graph_replays": replays,
+            "graph_vs_eager_logits": graph_err, "graph_bit_equal": bit}
+
+
+def serve_captured(cfg, args, params):
+    """serve_lm on the card, which must decode through its CUDA graphs: one
+    replay per generated token after the first of each batch, one capture
+    per batch shape.  (report, replays)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import CapturedServeStep
+
+    CapturedServeStep.reset_counts()
+    report = serve.serve_lm(cfg, args, params=params)
+    batches = -(-args.requests // args.batch)
+    shapes = 1 + (args.requests % args.batch != 0 and batches > 1)
+    want = batches * (args.gen - 1)
+    check(CapturedServeStep.replays == want
+          and CapturedServeStep.captures == shapes,
+          f"{cfg.name}: serve_lm replayed {CapturedServeStep.replays} decode "
+          f"graphs ({want} expected) and captured "
+          f"{CapturedServeStep.captures} ({shapes} expected)")
+    return report, CapturedServeStep.replays
 
 
 def lm_bytes(params, cfg, B, window):
@@ -1954,6 +2035,18 @@ def lm_bytes(params, cfg, B, window):
     else:
         cache = 4 * cfg.n_layers * B * window * 2 * cfg.n_kv_heads * cfg.hd
     return weights, 2 * cache
+
+
+def lm_slot_bytes(cfg, B):
+    """Bytes an in-place decode step must write into its f32 caches: each
+    attention layer's slot of k and v, each SSM layer's conv window and
+    state."""
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // max(cfg.attn_period, 1)}[cfg.family]
+    ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return 4 * B * (attn * 2 * cfg.n_kv_heads * cfg.hd + ssm * (
+        (cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state)
+        + cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state))
 
 
 def lm_trace(fn, runs=2, device_top=None):
@@ -1989,6 +2082,137 @@ def lm_trace(fn, runs=2, device_top=None):
                         for e in top[:8]}
 
 
+def decode_setup(params, cfg, B, prompt_len, gen, seed):
+    """B seeded prompts prefilled (encdec: encoded, the decoder started from
+    token 0) and their caches grown to prompt_len + gen: (caches, first
+    token, the family's model module)."""
+    from repro_torch.models import encdec, lm
+
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (B, prompt_len))).cuda()
+    if cfg.family == "encdec":
+        enc_in = torch.from_numpy((rng.standard_normal(
+            (B, prompt_len, cfg.d_model)) * 0.05).astype(np.float32)).cuda()
+        enc_out = encdec.encode(params, cfg, enc_in)
+        caches = encdec.make_dec_caches(params, cfg, enc_out,
+                                        prompt_len + gen, dtype=torch.float32)
+        return caches, torch.zeros((B, 1), dtype=torch.int32,
+                                   device="cuda"), encdec
+    logits, caches = lm.prefill(params, cfg, tokens=prompt)
+    caches = lm.grow_caches(cfg, caches, prompt_len + gen)
+    return caches, logits.argmax(-1).to(torch.int32)[:, None], lm
+
+
+def captured_vs_eager(params, cfg, B, prompt_len, gen, seed=3):
+    """gen - 1 greedy decode steps from the same prefilled caches, eagerly
+    (the functional step that make_serve_step runs) and through a
+    CapturedServeStep: (tokens equal at every step, the worst step's
+    max |logit difference| over max |eager logit|, logits bit-equal, the
+    capture's seconds)."""
+    from repro_torch.engine import Mesh
+    from repro_torch.launch.steps import CapturedServeStep
+
+    with torch.inference_mode():
+        caches, cur, mod = decode_setup(params, cfg, B, prompt_len, gen,
+                                        seed)
+        eager_tok, eager_log, c, x = [], [], caches, cur
+        for _ in range(gen - 1):
+            lg, c = mod.decode_step(params, cfg, x, c, mesh=Mesh(1, 1))
+            x = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+            eager_tok.append(x)
+            eager_log.append(lg)
+        del c
+        cap = CapturedServeStep(cfg, params, Mesh(1, 1))
+        toks = cap(caches, cur, gen - 1, keep_logits=True)
+        same = all(torch.equal(a, b) for a, b in zip(toks, eager_tok))
+        err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                  for a, b in zip(cap.step_logits, eager_log))
+        bit = all(torch.equal(a, b) for a, b in zip(cap.step_logits,
+                                                    eager_log))
+    return same, err, bit, cap.capture_s[0]
+
+
+class CacheWrites(TorchDispatchMode):
+    """Over one eager decode step: bytes it writes into its caches' storage
+    in place (``index_copy_``, ``copy_``), bytes of out-of-place copies of
+    a cache leaf (``index_copy``: a whole window each), and bytes of
+    contiguous copies read from a cache."""
+
+    def __init__(self, caches):
+        super().__init__()
+        self.storages = {t.untyped_storage().data_ptr()
+                         for t in _cache_leaves(caches)}
+        self.write = self.window_copies = self.layout_copies = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        first = args[0] if args else None
+        if not (isinstance(first, torch.Tensor)
+                and first.untyped_storage().data_ptr() in self.storages):
+            return out
+        if name in ("index_copy_", "copy_"):
+            src = args[3] if name == "index_copy_" else first
+            self.write += src.numel() * first.element_size()
+        elif name == "index_copy":
+            self.window_copies += out.numel() * out.element_size()
+        elif name in ("clone", "_to_copy"):
+            self.layout_copies += out.numel() * out.element_size()
+        return out
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _cache_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def step_copies(params, cfg, caches, cur):
+    """CacheWrites of one in-place step (what the graph replays) and of one
+    functional step (what the eager serve step runs), on copies of
+    ``caches``."""
+    from repro_torch.engine import Mesh
+    from repro_torch.models import encdec, lm
+
+    mod = encdec if cfg.family == "encdec" else lm
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("in_place", mod.decode_step_),
+                         ("functional", mod.decode_step)):
+            copy = {k: (None if v is None else {kk: vv.clone() for kk, vv
+                                                in v.items()})
+                    for k, v in caches.items()}
+            with CacheWrites(copy) as cw:
+                fn(params, cfg, cur, copy, mesh=Mesh(1, 1))
+            out[name] = {"cache_write_bytes": cw.write,
+                         "window_copy_bytes": cw.window_copies,
+                         "layout_copy_bytes": cw.layout_copies}
+            del copy
+    return out
+
+
+def host_launches(fn, runs=3):
+    """Launch API calls (kernels, graphs, copies, memsets) the host makes
+    per call of ``fn``, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                             "cudaMemcpy", "cudaMemset")):
+            names[e.key] = e.count / runs
+    return sum(names.values()), names
+
+
 def phase_lm_full(arch):
     """One model at full width, in f32: serving at the reference's
     defaults, the reference's consistency test, a CPU cross-check, and the
@@ -1996,7 +2220,7 @@ def phase_lm_full(arch):
     from repro_torch.configs import get_config
     from repro_torch.engine import Mesh
     from repro_torch.launch import serve
-    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.launch.steps import CapturedServeStep, make_serve_step
     from repro_torch.models import lm
 
     cfg = get_config(arch)
@@ -2010,7 +2234,7 @@ def phase_lm_full(arch):
           f"{cfg.n_params()}), drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     args = lm_args("--arch", arch)
-    report = serve.serve_lm(cfg, args, params=params)
+    report, replays = serve_captured(cfg, args, params)
     check(len(report.sequences) == args.requests and all(
         len(seq) == args.gen for seq in report.sequences),
         f"{arch}: {len(report.sequences)} sequences served")
@@ -2078,6 +2302,32 @@ def phase_lm_full(arch):
         dev_ms = device_ms(step, runs=LM_PROFILED_STEPS, warm=2)
         call_ms = median_ms(step, runs=LM_TIMED_STEPS, warm=3)
         launches, host_top = lm_trace(step)
+        eager_host, _ = host_launches(step)
+        copies = step_copies(params, cfg, caches, cur)
+        # the same step as one graph replay (and the token's copy out)
+        cap = CapturedServeStep(cfg, params, Mesh(1, 1))
+        cap(caches, cur, 1)
+        g = next(iter(cap.graphs.values()))
+
+        def replay():
+            g.graph.replay()
+            return g.tokens.clone()
+
+        g_dev_ms = device_ms(replay, runs=LM_PROFILED_STEPS, warm=2)
+        g_call_ms = median_ms(replay, runs=LM_TIMED_STEPS, warm=3)
+        g_launches, _ = lm_trace(replay)
+        g_host, g_host_names = host_launches(replay)
+    same, graph_err, bit, capture_s = captured_vs_eager(
+        params, cfg, B, args.prompt_len, args.gen)
+    check(same and graph_err <= LM_GRAPH_TOL,
+          f"{arch}: captured vs eager decode: tokens equal {same}, logits "
+          f"{graph_err:.3e} of max |logit| (tolerance {LM_GRAPH_TOL})")
+    slot_bytes = lm_slot_bytes(cfg, B)
+    check(copies["in_place"]["window_copy_bytes"] == 0
+          and copies["in_place"]["cache_write_bytes"] == slot_bytes,
+          f"{arch}: the in-place step copied {copies['in_place']} bytes of "
+          f"its caches ({slot_bytes} written expected: its slots, or the "
+          f"SSM state)")
     w_bytes, c_bytes = lm_bytes(params, cfg, B, window)
     b_ms = 1e3 * w_bytes / hbm_bps()
     row = {"arch": arch, "params": n, "peak_bytes": peak,
@@ -2090,9 +2340,19 @@ def phase_lm_full(arch):
            "device_launches_per_step": launches,
            "host_top_ms_per_step": host_top,
            "card_vs_cpu_worst": worst, "smallest_top2_margin": margin,
-           "consistency_err": [e_pre, e_dec]}
+           "consistency_err": [e_pre, e_dec],
+           "graph": {"serve_replays": replays, "capture_s": capture_s,
+                     "device_ms": g_dev_ms, "call_ms": g_call_ms,
+                     "device_launches_per_step": g_launches,
+                     "host_launches_per_token": g_host,
+                     "host_launch_calls": g_host_names,
+                     "tokens_equal_eager": same,
+                     "logits_vs_eager": graph_err,
+                     "logits_bit_equal": bit},
+           "eager_host_launches_per_token": eager_host,
+           "cache_bytes_per_step": copies}
     print("lm: " + json.dumps(row))
-    del params, caches, serve_step
+    del params, caches, serve_step, cap, g
     torch.cuda.empty_cache()
     return row
 
@@ -2106,9 +2366,12 @@ def phase_lm():
     t0 = time.perf_counter()
     before = kernel_counts()
     for arch in ARCH_IDS:
-        err, rate = phase_lm_reduced(arch, LM_REDUCED_REQUESTS)
-        print(f"lm reduced {arch}: card vs CPU logits {err:.3e} "
-              f"(tolerance {LM_DEVICE_TOL}), {rate:.1f} tok/s")
+        r = phase_lm_reduced(arch, LM_REDUCED_REQUESTS)
+        print(f"lm reduced {arch}: card vs CPU logits {r['card_vs_cpu']:.3e}"
+              f" (tolerance {LM_DEVICE_TOL}), {r['tok_per_s']:.1f} tok/s, "
+              f"{r['graph_replays']} graph replays, captured vs eager logits "
+              f"{r['graph_vs_eager_logits']:.3e} (bit-equal "
+              f"{r['graph_bit_equal']})")
     rows = [phase_lm_full(arch) for arch in LM_FULL]
     check(kernel_counts() == before,
           f"a hand-written kernel launched during LM serving: "
@@ -2289,6 +2552,123 @@ def train_bound(params, cfg, B, S):
     return ms, by, n_bytes, flops
 
 
+def adamw_groups(params):
+    """The optimizer's groups of leaves (names) for a module's
+    parameters."""
+    from repro_torch.optim import adamw as O
+
+    names = [n for n, _ in params.named_parameters()]
+    return [[names[i] for i in g] for g in O._groups(
+        [p.numel() for _, p in params.named_parameters()])]
+
+
+def phase_adamw(params, opt_state, cfg):
+    """The fused AdamW kernel on TRAIN_FULL's full-width state: bit-equal
+    to its plain version for one update of every group, with the model's
+    parameter dtypes (bf16, and f32 where the model keeps it) and with
+    every parameter f32; then the update's times over every group: the
+    kernel, the plain version and ``torch._fused_adamw_`` (PyTorch's own
+    fused AdamW on the same f32 master, mu and nu; a yardstick, never
+    called by the port) beside the bytes bound.  Seeded gradients of
+    1e-3 scale stand in for a step's."""
+    from repro_torch.kernels import adamw as A
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim import adamw as O
+
+    t0 = time.perf_counter()
+    opt_cfg = OptConfig(warmup_steps=10, total_steps=TRAIN_FULL_STEPS)
+    named = dict(params.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    grads = {n: torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+             for n, p in named.items()}
+    step = opt_state["step"]
+    lr = O.schedule(step, opt_cfg)
+    gnorm = O.global_norm(grads)
+    scale = torch.clamp(opt_cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    t = (step + 1).to(torch.float32)
+    bc1, bc2 = 1 - opt_cfg.b1 ** t, 1 - opt_cfg.b2 ** t
+    hp = dict(b1=opt_cfg.b1, b2=opt_cfg.b2, eps=opt_cfg.eps,
+              weight_decay=opt_cfg.weight_decay)
+    groups = adamw_groups(params)
+
+    def args(gn, state, dtypes):
+        return ([grads[n] for n in gn], [state["master"][n] for n in gn],
+                [state["mu"][n] for n in gn], [state["nu"][n] for n in gn],
+                dtypes, scale, lr, bc1, bc2)
+
+    worst = {}
+    for kind in ("model", "f32"):
+        same = True
+        for gn in groups:
+            dts = [named[n].dtype if kind == "model" else torch.float32
+                   for n in gn]
+            a = {k: {n: opt_state[k][n].clone() for n in gn}
+                 for k in ("master", "mu", "nu")}
+            b = {k: {n: opt_state[k][n].clone() for n in gn}
+                 for k in ("master", "mu", "nu")}
+            before = A.adamw_fused.launches
+            out_a = A.adamw_fused(*args(gn, a, dts), **hp)
+            out_b = A.adamw_plain(*args(gn, b, dts), **hp)
+            torch.cuda.synchronize()
+            check(A.adamw_fused.launches == before + 1,
+                  "the fused AdamW wrapper did not launch its kernel")
+            same &= all(torch.equal(x, y) for x, y in zip(out_a, out_b))
+            same &= all(torch.equal(a[k][n], b[k][n]) for k in a for n in gn)
+            del a, b, out_a, out_b
+        worst[kind] = same
+    check(all(worst.values()), f"the fused AdamW kernel is not bit-equal to "
+          f"its plain version: {worst}")
+    dtypes = {n: p.dtype for n, p in named.items()}
+
+    def kernel():
+        for gn in groups:
+            A.adamw_fused(*args(gn, opt_state, [dtypes[n] for n in gn]), **hp)
+
+    def plain():
+        for gn in groups:
+            A.adamw_plain(*args(gn, opt_state, [dtypes[n] for n in gn]), **hp)
+
+    names = list(named)
+    # its bias correction reads each leaf's step count (>= 1)
+    steps = [(step + 1).float() for _ in names]
+    lr_f = float(lr)
+
+    def library():
+        torch._fused_adamw_(
+            [opt_state["master"][n] for n in names],
+            [grads[n] for n in names], [opt_state["mu"][n] for n in names],
+            [opt_state["nu"][n] for n in names], [], steps, lr=lr_f,
+            beta1=opt_cfg.b1, beta2=opt_cfg.b2,
+            weight_decay=opt_cfg.weight_decay, eps=opt_cfg.eps,
+            amsgrad=False, maximize=False)
+
+    n_el = sum(p.numel() for p in named.values())
+    out_bytes = sum(p.numel() * p.element_size() for p in named.values())
+    n_bytes = 16 * n_el + 12 * n_el + out_bytes
+    b_ms, b_by = bound_ms(n_bytes, 20 * n_el)
+    k_dev = device_ms(kernel, runs=3, warm=1)
+    k_call = median_ms(kernel, runs=3, warm=1)
+    p_dev = device_ms(plain, runs=2, warm=1)
+    p_call = median_ms(plain, runs=2, warm=1)
+    l_dev = device_ms(library, runs=3, warm=1)
+    l_call = median_ms(library, runs=3, warm=1)
+    row = {"groups": len(groups), "leaves": len(names), "elements": n_el,
+           "bit_equal_plain": worst, "ms": k_dev if k_dev is not None
+           else k_call, "call_ms": k_call,
+           "plain_ms": p_dev if p_dev is not None else p_call,
+           "plain_call_ms": p_call,
+           "library_ms": l_dev if l_dev is not None else l_call,
+           "library_call_ms": l_call, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_bytes": n_bytes, "launches_per_step": len(groups),
+           "timing": "profiler" if k_dev is not None else "events",
+           "seconds": time.perf_counter() - t0}
+    print("adamw: " + json.dumps(row))
+    del grads, steps
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_train_full():
     """TRAIN_FULL at full width through ``main`` at its defaults; the
     final checkpoint restored; a card vs CPU check in f32 at B = 1; the
@@ -2296,6 +2676,7 @@ def phase_train_full():
     from repro_torch.checkpoint import load_checkpoint, store
     from repro_torch.configs import get_config
     from repro_torch.engine import Mesh
+    from repro_torch.kernels import adamw as A
     from repro_torch.launch import train
     from repro_torch.optim import OptConfig
     from repro_torch.optim.adamw import global_norm
@@ -2315,8 +2696,11 @@ def phase_train_full():
     store.save_checkpoint = timed_save
     try:
         with tempfile.TemporaryDirectory() as d:
+            # the main path of the fused optimizer: its count from 0
+            A.adamw_fused.launches = 0
             run = train.main(["--arch", TRAIN_FULL, "--steps",
                               str(TRAIN_FULL_STEPS), "--ckpt-dir", d])
+            main_launches = A.adamw_fused.launches
             peak = torch.cuda.max_memory_allocated()
             cfg, tr, losses = run.cfg, run.trainer, run.summary["losses"]
             restarts = run.summary["restarts"]
@@ -2349,13 +2733,28 @@ def phase_train_full():
     def step():
         return tr.train_step(tr.params, tr.opt_state, batch)
 
+    n_groups = len(adamw_groups(tr.params))
+    check(main_launches == TRAIN_FULL_STEPS * n_groups,
+          f"{TRAIN_FULL}: main launched the fused AdamW kernel "
+          f"{main_launches} times ({TRAIN_FULL_STEPS} steps x {n_groups} "
+          f"groups expected)")
+    before = A.adamw_fused.launches
+    step()
+    torch.cuda.synchronize()
+    check(A.adamw_fused.launches - before == n_groups,
+          f"train_step launched the fused AdamW kernel "
+          f"{A.adamw_fused.launches - before} times ({n_groups} groups)")
     dev_ms = device_ms(step, runs=TRAIN_PROFILED_STEPS, warm=1)
     call_ms = median_ms(step, runs=TRAIN_TIMED_STEPS, warm=1)
     device_top = {}
     launches, host_top = lm_trace(step, device_top=device_top)
     b_ms, b_by, n_bytes, flops = train_bound(tr.params, cfg, B, S)
     n = sum(p.numel() for p in tr.params.parameters())
-    del run, tr, step, batch
+    del step, batch
+    torch.cuda.empty_cache()
+    opt_row = phase_adamw(tr.params, tr.opt_state, cfg)
+    opt_row["main_launches"] = main_launches
+    del run, tr
     torch.cuda.empty_cache()
     # card vs CPU in f32 at B = 1, S = 16, the same weights
     t0 = time.perf_counter()
@@ -2382,7 +2781,8 @@ def phase_train_full():
             "step_device_ms": dev_ms, "step_call_ms": call_ms,
             "tok_per_s": B * S / call_ms * 1e3,
             "launches_per_step": launches, "host_top_ms_per_step": host_top,
-            "device_top_ms_per_step": device_top, "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": n_bytes,
+            "device_top_ms_per_step": device_top, "adamw": opt_row,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": n_bytes,
             "bound_flops": flops, "ckpt_bytes": ckpt_bytes,
             "save_s": saves, "save_gb_per_s": [ckpt_bytes / 1e9 / x
                                                for x in saves],
@@ -2415,10 +2815,11 @@ def phase_train():
     row = phase_train_full()
     print("train: " + json.dumps(row))
     check(kernel_counts() == before,
-          f"a hand-written kernel launched during training: "
+          f"a BSR or MoE kernel launched during training: "
           f"{before} -> {kernel_counts()}")
-    print(f"phase 10 took {time.perf_counter() - t0:.1f} s; no hand-written "
-          f"kernel launched")
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s; the fused AdamW "
+          f"kernel ran every update ({row['adamw']['main_launches']} "
+          f"launches in main); no other hand-written kernel launched")
     return row
 
 
@@ -2559,6 +2960,7 @@ def _mesh_reduced_rank(rank, device, d):
     the parent's weights and batch, moe_a2a, the ring and quantized_psum;
     every hand-written kernel's counter unchanged."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import adamw as A
     from repro_torch.launch import partition
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.steps import make_train_step
@@ -2569,6 +2971,7 @@ def _mesh_reduced_rank(rank, device, d):
     from repro_torch.launch import specs as lspecs
 
     before = kernel_counts()
+    adamw_before = A.adamw_fused.launches
     mesh = make_test_mesh(2, 2).bind()
     res = {}
     for arch in MESH_ARCHS:
@@ -2621,8 +3024,90 @@ def _mesh_reduced_rank(rank, device, d):
     res["psum_rel"] = float(((q - g.sum(0)).abs() / (1 + g.sum(0).abs()))
                             .max())
     res["kernels_moved"] = kernel_counts() != before
+    res["adamw_launches"] = A.adamw_fused.launches - adamw_before
     res["stats"] = STATS.snapshot()
+    res["decode"] = mesh_decode_checks(mesh, device)
     torch.save(res, os.path.join(d, f"rank{rank}.pt"))
+
+
+def mesh_decode_checks(mesh, device):
+    """Decode on the 2x2 mesh against one device in this rank, from the
+    same seeded weights and tokens, per family (and a KV window of 7 on
+    model = 2, whole on every rank; mamba2 with H = 3 heads and Ch = 128
+    conv channels): prefill on the mesh (its caches in cache_specs'
+    layout), grow_caches on the mesh, three decode steps, the last past
+    the window; each the max |logit| and cache error against one
+    device's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import partition
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import encdec, lm
+
+    one = make_test_mesh(1, 1)
+    B, P = 4, 6
+
+    def rows(x):
+        return partition.local_shard(
+            x, partition.batch_specs(mesh, {"x": x})["x"], mesh).clone()
+
+    def err(a, b):
+        if isinstance(a, dict):
+            return max([err(a[k], b[k]) for k in a if k != "window"] + [0.0])
+        if a is None:
+            return 0.0
+        check(a.shape == b.shape, f"mesh decode: {a.shape} vs {b.shape}")
+        return float((a.float() - b.float()).abs().max())
+
+    out = {}
+    for name, arch, changes, W in MESH_DECODE:
+        cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
+        mod = encdec if cfg.family == "encdec" else lm
+        full = mod.init(torch.Generator(device=device).manual_seed(0), cfg,
+                        dtype=torch.float32)
+        split = mod.init(torch.Generator(device=device).manual_seed(0), cfg,
+                         dtype=torch.float32)
+        partition.shard_module(split, partition.params_specs(mesh, split),
+                               mesh)
+        gen = torch.Generator(device=device).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (B, P + 3), generator=gen,
+                             device=device)
+        errs = {}
+        with torch.no_grad():
+            if cfg.family == "encdec":
+                src = torch.randn(B, W, cfg.d_model, generator=gen,
+                                  device=device)
+                pre = {"src_embeds": src, "tgt_tokens": toks[:, :P]}
+                lg1, e1 = make_prefill_step(cfg, one)(full, pre)
+                caches = encdec.make_dec_caches(full, cfg, e1, W,
+                                                dtype=torch.float32)
+                lgm, em = make_prefill_step(cfg, mesh)(
+                    split, {k: rows(v) for k, v in pre.items()})
+                mine = encdec.make_dec_caches(split, cfg, em, W,
+                                              dtype=torch.float32, mesh=mesh)
+            else:
+                pre = {"tokens": toks[:, :P]}
+                lg1, caches = make_prefill_step(cfg, one)(full, pre)
+                caches = lm.grow_caches(cfg, caches, W)
+                lgm, mine = make_prefill_step(cfg, mesh)(
+                    split, {k: rows(v) for k, v in pre.items()})
+                mine = lm.grow_caches(cfg, mine, W, mesh=mesh)
+            errs["prefill"] = err(lgm, rows(lg1))
+            specs = partition.cache_specs(mesh, cfg, caches)
+            for i in range(3):
+                if i == 2:          # a position past the window: it clamps
+                    for c in (caches, mine):
+                        for sub in c.values():
+                            if isinstance(sub, dict) and "pos" in sub:
+                                sub["pos"] = sub["pos"] + W
+                tok = toks[:, P + i:P + i + 1]
+                lg1, caches = mod.decode_step(full, cfg, tok, caches, one)
+                lgm, mine = mod.decode_step(split, cfg, rows(tok), mine, mesh)
+                errs[f"decode{i}"] = err(lgm, rows(lg1))
+                errs[f"caches{i}"] = err(
+                    mine, partition.shard_caches(mesh, cfg, caches))
+        out[name] = errs
+    return out
 
 
 def phase_mesh_reduced():
@@ -2710,9 +3195,19 @@ def phase_mesh_reduced():
           f"moe_a2a vs dense {moe_err:.3e}, ring {ring_err:.3e}, "
           f"quantized_psum {psum_rel:.3e}")
     check(not any(r["kernels_moved"] for r in ranks),
-          "a hand-written kernel launched in a mesh rank")
+          "a BSR or MoE kernel launched in a mesh rank")
+    check(all(r["adamw_launches"] >= len(MESH_ARCHS) for r in ranks),
+          f"a mesh rank's steps did not all go through the fused AdamW "
+          f"kernel: {[r['adamw_launches'] for r in ranks]}")
+    decode = {name: max(max(r["decode"][name].values()) for r in ranks)
+              for name, *_ in MESH_DECODE}
+    check(all(v <= MESH_DECODE_TOL for v in decode.values()),
+          f"decode on the 2x2 mesh vs one device: {decode} (tolerance "
+          f"{MESH_DECODE_TOL})")
     out = {"steps": rows, "moe_a2a_vs_dense": moe_err, "ring_err": ring_err,
            "quantized_psum_rel": psum_rel,
+           "adamw_launches": [r["adamw_launches"] for r in ranks],
+           "decode_vs_one_device": decode,
            "stats": [r["stats"] for r in ranks],
            "seconds": {"one_device": t1 - t0, "world": t2 - t1}}
     print("mesh reduced: " + json.dumps(out))
@@ -2730,6 +3225,8 @@ def _mesh_figures_rank(rank, device, d):
     from repro_torch.models.sharding import STATS
     from repro_torch.optim import OptConfig
 
+    from repro_torch.kernels import adamw as A
+
     before = kernel_counts()
     torch.cuda.reset_peak_memory_stats(device)
     mesh = make_test_mesh(2, 2).bind()
@@ -2745,9 +3242,12 @@ def _mesh_figures_rank(rank, device, d):
         return m
 
     STATS.reset()
+    launches = A.adamw_fused.launches
     dev = device_ms(step, runs=1, warm=1)
     n = state["steps"]
     out = {"rank": rank, "step_device_ms": dev,
+           "adamw_launches_per_step":
+               (A.adamw_fused.launches - launches) / max(n, 1),
            "collectives_per_step": {
                "calls": {k: v / n for k, v in STATS.calls.items()},
                "bytes": {k: v / n for k, v in STATS.bytes.items()},
@@ -2869,7 +3369,14 @@ def phase_mesh_full(probe):
                 figures.append(json.load(f))
         t_figures = time.perf_counter()
         check(not any(f["kernels_moved"] for f in figures),
-              "a hand-written kernel launched in a full-width mesh rank")
+              "a BSR or MoE kernel launched in a full-width mesh rank")
+        check(all(f["adamw_launches_per_step"] >= 1 for f in figures)
+              and all(r["adamw_launches"] >= TRAIN_FULL_STEPS
+                      for r in run.summary["ranks"]),
+              f"a full-width mesh rank's updates did not all go through the "
+              f"fused AdamW kernel: main "
+              f"{[r['adamw_launches'] for r in run.summary['ranks']]}, "
+              f"figures {[f['adamw_launches_per_step'] for f in figures]}")
         run_world(_mesh_f32_rank, 4, "cuda", d)
         with open(os.path.join(d, "f32.json")) as f:
             mesh_f32 = json.load(f)
@@ -2909,6 +3416,9 @@ def phase_mesh_full(probe):
             "losses": losses, "restarts": run.summary["restarts"],
             "ranks": [{"rank": r, "peak_bytes": ranks[r]["peak_bytes"],
                        "step_call_s": ranks[r]["step_s"],
+                       "adamw_launches": ranks[r]["adamw_launches"],
+                       "adamw_launches_per_step":
+                           figures[r]["adamw_launches_per_step"],
                        "run_collectives": ranks[r]["collectives"],
                        "figures_peak_bytes": figures[r]["peak_bytes"],
                        **{k: figures[r][k] for k in
@@ -2937,9 +3447,10 @@ def phase_mesh():
     row["seconds"]["phase_11"] = time.perf_counter() - t0
     print("mesh train: " + json.dumps(row))
     check(kernel_counts() == before,
-          f"a hand-written kernel launched during phase 11: "
+          f"a BSR or MoE kernel launched during phase 11: "
           f"{before} -> {kernel_counts()}")
-    print(f"phase 11 took {time.perf_counter() - t0:.1f} s; no hand-written "
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s; every rank "
+          f"updated through the fused AdamW kernel; no other hand-written "
           f"kernel launched in any rank")
     return row
 
@@ -3146,6 +3657,7 @@ def main() -> int:
         mesh_row = phase_mesh()
         phase_dryrun(train_row, mesh_row)
         kernels = kernel_line(entries, launches, main_err, sharded_launches)
+        kernels.append(adamw_kernel_row(train_row))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "bsr_kernels.cu", CSRC / "bsr_matmul.cu",
-           CSRC / "moe_ffn.cu")
+           CSRC / "moe_ffn.cu", CSRC / "adamw.cu")
 HEADERS = (CSRC / "common.cuh", CSRC / "split_k.cuh")
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
@@ -49,6 +49,10 @@ _SIGNATURES = {
     # dtype, x, w_up, w_down, out, scratch, E, C, d, f, rows, stages,
     # f_chunk, route, act, stream
     "moe_ffn_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P],
+    # leaves (device table), n_leaves, n_chunks, scale, lr, bc1, bc2, b1,
+    # 1 - b1, b2, 1 - b2, eps, weight_decay, stream
+    "adamw_launch": [_P, _I, ctypes.c_longlong] + [_P] * 4
+                    + [ctypes.c_float] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

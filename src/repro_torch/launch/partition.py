@@ -30,6 +30,7 @@ from typing import (Any, Dict, Iterator, List, Mapping, Optional, Sequence,
 import torch
 from torch import nn
 
+from ..models.layers import window_leaf
 from ..models.sharding import div_or_none, gather, reduce_, reduce_scatter
 from .mesh import dp_axes, dp_size
 
@@ -205,6 +206,29 @@ def cache_specs(mesh, cfg, caches_shape) -> Any:
                 for k, v in node.items()}
 
     return walk(caches_shape)
+
+
+def shard_caches(mesh, cfg, caches) -> Any:
+    """This rank's slices of caches made whole (on one device: ``lm.prefill``
+    and ``grow_caches``, ``encdec.make_dec_caches``) under ``cache_specs``,
+    as new tensors; each attention cache carries its ``"window"`` leaf
+    (``models.layers.kv_window``), so a decode step on ``mesh`` reads its
+    layout, split or whole.  The counterpart of placing the reference's
+    caches with ``cache_specs``' shardings."""
+    specs = cache_specs(mesh, cfg, caches)
+
+    def walk(node, spec):
+        if node is None:
+            return None
+        if not isinstance(node, Mapping):
+            return local_shard(node, spec, mesh).clone()
+        out = {k: walk(v, spec[k]) for k, v in node.items()}
+        if "k" in node and "window" not in node:
+            k = node["k"]
+            out["window"] = window_leaf(k.shape[-3], k.shape[:-4], k.device)
+        return out
+
+    return walk(caches, specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -432,4 +456,5 @@ __all__ = ["NamedSharding", "STACKS", "batch_specs", "cache_specs", "depths",
            "gather_named", "iter_gathered", "layer_of", "leaf_spec",
            "local_shape", "local_shard", "only", "opt_init", "opt_specs",
            "owns", "param_spec", "params_specs", "reduce_named",
-           "shard_module", "shard_named", "slices", "to_named"]
+           "shard_caches", "shard_module", "shard_named", "slices",
+           "to_named"]

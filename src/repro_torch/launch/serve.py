@@ -9,7 +9,9 @@ random weights from seed 0, in f32: ``--requests`` prompts of
 ``--prompt-len`` tokens drawn from ``np.random.default_rng(0)``, served
 ``--batch`` at a time (continuous batching slots), each prefilled and then
 decoded greedily for ``--gen`` tokens.  No hand-written kernel lies on that
-path: its products are PyTorch's, as the reference's are ``jnp``'s.
+path: its products are PyTorch's, as the reference's are ``jnp``'s.  On the
+card each decode step is one replay of a CUDA graph (captured per batch
+shape), as the reference jits its step.
 
 Feature vectors go through a block-magnitude-pruned sparse FFNN — by default
 the paper's BERT-large encoder FFNN, 1024 -> 4096 -> 1024, density 0.1,
@@ -81,7 +83,7 @@ from ..serving import (
     SparseServer,
 )
 from ..sparse import prune_dense_stack
-from .steps import make_serve_step
+from .steps import CapturedServeStep, make_serve_step
 
 Runtime = Union[SparseServer, ModelRouter]
 # how long the driver waits for one answer, or for the drain at the end, in
@@ -456,6 +458,25 @@ def _lm_device(name: str) -> torch.device:
     return device
 
 
+def _decoder(cfg: ModelConfig, params, device: torch.device):
+    """``decode(caches, first token, n) -> [n greedy tokens]``: on a CUDA
+    device a ``CapturedServeStep`` (one CUDA-graph replay per token, as the
+    reference jits its step); on the CPU ``make_serve_step``'s eager step in
+    a loop.  Both decode under a 1x1 mesh."""
+    if device.type == "cuda":
+        return CapturedServeStep(cfg, params, Mesh(1, 1))
+    serve_step = make_serve_step(cfg, Mesh(1, 1))
+
+    def decode(caches, cur, n):
+        out = []
+        for _ in range(n):
+            cur, caches = serve_step(params, caches, cur)
+            out.append(cur)
+        return out
+
+    return decode
+
+
 def serve_lm(cfg: ModelConfig, args, params=None) -> LMServeReport:
     """The reference's LM serving loop on ``args.device``.
 
@@ -468,13 +489,17 @@ def serve_lm(cfg: ModelConfig, args, params=None) -> LMServeReport:
     0), its caches grown to ``prompt_len + gen``, then decoded greedily;
     the decode step runs under a 1x1 mesh, so ``moe_impl="a2a"`` configs
     take the one-shard expert-parallel body there, as in the reference.
+    On a CUDA device the decode step is ``steps.CapturedServeStep``: the
+    prefill's caches copied into static buffers once per batch, then one
+    CUDA-graph replay per token (a failed capture raises); on the CPU it
+    is ``make_serve_step``'s eager step.
     """
     device = _lm_device(args.device)
     mod = encdec if cfg.family == "encdec" else lm
     if params is None:
         params = mod.init(torch.Generator(device=device).manual_seed(0), cfg,
                           dtype=torch.float32)
-    serve_step = make_serve_step(cfg, Mesh(1, 1))
+    decode = _decoder(cfg, params, device)
 
     rng = np.random.default_rng(0)
     window = args.prompt_len + args.gen
@@ -504,10 +529,7 @@ def serve_lm(cfg: ModelConfig, args, params=None) -> LMServeReport:
                 logits, caches = lm.prefill(params, cfg, tokens=prompts)
                 caches = lm.grow_caches(cfg, caches, window)
                 cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            outs = [cur]
-            for _ in range(args.gen - 1):
-                cur, caches = serve_step(params, caches, cur)
-                outs.append(cur)
+            outs = [cur] + decode(caches, cur, args.gen - 1)
             gen = torch.cat(outs, dim=1).cpu().numpy()
             tokens_out += gen.size
             done.extend(list(gen))

@@ -1,9 +1,15 @@
 """Train / prefill / serve step factories (port of ``repro.launch.steps``).
+
+``CapturedServeStep`` is the port's counterpart of ``jax.jit`` around
+``make_serve_step`` on one card: the decode step, with its caches written
+in place (``lm.decode_step_``), captured once per shape in a CUDA graph and
+replayed once per generated token.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -105,6 +111,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh=None,
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """``prefill_step(params, batch) -> (last-position logits, caches)``
+    (encdec: the encoder output in place of caches).  On a mesh the caches
+    come back in ``partition.cache_specs``' layout (``lm.prefill``), as the
+    reference's ``out_shardings`` give them."""
+
     def prefill_step(params, batch):
         if cfg.family == "encdec":
             enc_out = encdec.encode(params, cfg, batch["src_embeds"],
@@ -132,3 +143,122 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
         return next_tok, new_caches
 
     return serve_step
+
+
+#: eager steps a new graph's buffers run on a side stream before capture
+#: (kernel selection and the allocator settle there, not in the graph)
+_WARMUP = 2
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested cache dict, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [] if tree is None else [tree]
+
+
+def _empty_like(tree):
+    if isinstance(tree, dict):
+        return {k: _empty_like(v) for k, v in tree.items()}
+    return None if tree is None else torch.empty_like(tree)
+
+
+class _Graph:
+    """One captured decode step: its static token, cache and logits
+    buffers and the graph that reads and writes them."""
+
+    def __init__(self, tokens, caches):
+        self.tokens = torch.empty_like(tokens)
+        self.caches = _empty_like(caches)
+        self.logits = None
+        self.graph = None
+
+    def load(self, caches, tokens) -> None:
+        for dst, src in zip(_leaves(self.caches), _leaves(caches)):
+            dst.copy_(src)
+        self.tokens.copy_(tokens)
+
+
+class CapturedServeStep:
+    """The decode step of ``make_serve_step`` on one CUDA device as CUDA
+    graphs: the counterpart of the reference's ``jax.jit(make_serve_step(
+    cfg, mesh))``.
+
+    A graph holds "the in-place decode step (``lm.decode_step_`` /
+    ``encdec.decode_step_``), then the greedy token written into the static
+    token buffer", so each replay reads the token the one before wrote.
+    One graph per shape of (tokens, caches) — in the serve loop, per batch
+    size and window, as ``jit`` retraces per shape; a queue's last, short
+    batch gets its own.  A new shape allocates static buffers, copies the
+    caches in, warms up on a side stream (the warm-up's writes are
+    overwritten) and captures; ``capture_s`` records each capture's
+    seconds (warm-up included).  A call copies the prefill's caches into
+    the static buffers once and replays the graph ``steps`` times.  The
+    step syncs nothing with the host: ``pos`` lives on the device.  A
+    capture that fails raises: there is no eager retry.
+
+    ``replays`` and ``captures`` count graph replays and captures in the
+    whole process (``reset_counts`` zeroes them)."""
+
+    replays = 0
+    captures = 0
+
+    def __init__(self, cfg: ModelConfig, params, mesh=None):
+        self.cfg, self.params, self.mesh = cfg, params, mesh
+        self.graphs: Dict[Tuple, _Graph] = {}
+        self.capture_s: List[float] = []
+        self.step_logits: List[torch.Tensor] = []
+
+    @classmethod
+    def reset_counts(cls) -> None:
+        cls.replays = 0
+        cls.captures = 0
+
+    def _step(self, g: _Graph) -> torch.Tensor:
+        mod = _model(self.cfg)
+        logits = mod.decode_step_(self.params, self.cfg, g.tokens, g.caches,
+                                  mesh=self.mesh)
+        g.tokens.copy_(torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
+        return logits
+
+    def _capture(self, caches, tokens) -> _Graph:
+        t0 = time.perf_counter()
+        g = _Graph(tokens, caches)
+        g.load(caches, tokens)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP):
+                self._step(g)
+        torch.cuda.current_stream().wait_stream(side)
+        g.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g.graph):
+            g.logits = self._step(g)
+        torch.cuda.synchronize()
+        self.capture_s.append(time.perf_counter() - t0)
+        CapturedServeStep.captures += 1
+        return g
+
+    def __call__(self, caches, tokens, steps: int,
+                 keep_logits: bool = False) -> List[torch.Tensor]:
+        """``steps`` greedy tokens ([B, 1] int32 each, on the device) after
+        ``tokens`` from the prefill's ``caches`` (which stay as they are);
+        with ``keep_logits``, each step's logits are kept in
+        ``step_logits``."""
+        self.step_logits = []
+        if steps <= 0:
+            return []
+        key = tuple((tuple(t.shape), t.dtype)
+                    for t in [tokens] + _leaves(caches))
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._capture(caches, tokens)
+        g.load(caches, tokens)
+        out = []
+        for _ in range(steps):
+            g.graph.replay()
+            CapturedServeStep.replays += 1
+            out.append(g.tokens.clone())
+            if keep_logits:
+                self.step_logits.append(g.logits.clone())
+        return out

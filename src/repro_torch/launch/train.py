@@ -40,6 +40,7 @@ import torch.distributed as dist
 from ..checkpoint import CheckpointManager
 from ..configs import ARCH_IDS, get_config, reduced
 from ..data import SyntheticLM, TokenBatcher
+from ..kernels.adamw import adamw_fused
 from ..models import encdec, lm
 from ..models.config import ModelConfig
 from ..models.sharding import STATS, axes_from_mesh
@@ -58,8 +59,8 @@ class TrainRun:
     ranks), the trainer's summary and the loop's wall time, and the
     backend of a run on several ranks.  ``summary["rank"]`` holds this
     rank's figures (peak memory, each step's and each save's seconds, the
-    collectives' calls and bytes); a spawned run's ``summary["ranks"]``
-    every rank's."""
+    collectives' calls and bytes, the fused AdamW kernel's launches); a
+    spawned run's ``summary["ranks"]`` every rank's."""
 
     cfg: ModelConfig
     trainer: Optional[ResilientTrainer]
@@ -198,6 +199,7 @@ def train(args: argparse.Namespace, device: torch.device,
     injector = FaultInjector([args.inject_fault_at]
                              if args.inject_fault_at is not None else [])
     STATS.reset()
+    launches = adamw_fused.launches
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     trainer = ResilientTrainer(
@@ -208,6 +210,7 @@ def train(args: argparse.Namespace, device: torch.device,
     summary = trainer.run(batches, args.steps)
     dt = time.time() - t0
     figures["collectives"] = STATS.snapshot()
+    figures["adamw_launches"] = adamw_fused.launches - launches
     figures["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                              if device.type == "cuda" else None)
     summary["rank"] = figures

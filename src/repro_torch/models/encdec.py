@@ -19,9 +19,10 @@ from torch import nn
 
 from .common import dense_init_, param, rms_norm
 from .config import ModelConfig
-from .layers import MLP, Attention, attention, make_cache, mlp
+from .layers import MLP, Attention, attention, make_cache, mesh_cache, mlp
 from .lm import (AttnBlock, _index, _logits, _maybe_remat, _positions, _stack,
                  _stacked, embed_tokens, lm_loss_from_h, unembed_matrix)
+from .sharding import all_gather, axis_size
 
 
 class DecBlock(nn.Module):
@@ -99,10 +100,10 @@ def encode(params: EncDec, cfg: ModelConfig, src_embeds: torch.Tensor,
 
 
 def _dec_block(p: DecBlock, h, positions, enc_out, cfg: ModelConfig,
-               self_cache=None, cross_cache=None, mesh=None):
+               self_cache=None, cross_cache=None, mesh=None, inplace=False):
     a, new_self = attention(p.self_attn, rms_norm(h, p.ln1, cfg.norm_eps),
                             positions, cfg, causal=True, cache=self_cache,
-                            mesh=mesh)
+                            mesh=mesh, inplace=inplace)
     h = h + a
     x, new_cross = attention(p.cross_attn, rms_norm(h, p.ln_x, cfg.norm_eps),
                              positions, cfg, causal=False, cache=cross_cache,
@@ -137,35 +138,64 @@ def loss_fn(params: EncDec, cfg: ModelConfig, batch: Dict, mesh=None):
 
 
 def make_dec_caches(params: EncDec, cfg: ModelConfig, enc_out, window: int,
-                    dtype=torch.bfloat16) -> Dict:
-    """Self caches (empty, ``window`` long) + cross caches (from enc_out)."""
+                    dtype=torch.bfloat16, mesh=None) -> Dict:
+    """Self caches (empty, ``window`` long) + cross caches (from enc_out).
+
+    Under a ``model`` axis (``enc_out`` whole, as ``encode`` on the mesh
+    gives it) both come back in ``launch.partition.cache_specs``' layout:
+    every kv head, the window (the source, for the cross caches) split
+    over ``model`` where it divides."""
     B, Skv = enc_out.shape[:2]
     K, hd = cfg.n_kv_heads, cfg.hd
+
+    def kv(w):
+        if w.shape[1] < K * hd:
+            w = all_gather(w, mesh, dim=1)
+        return torch.matmul(enc_out, w).reshape(B, Skv, K, hd).to(dtype)
+
     one = make_cache(cfg, B, window, dtype, enc_out.device)
-    cross = [{"k": torch.matmul(enc_out, p.cross_attn.wk).reshape(B, Skv, K, hd)
-              .to(dtype),
-              "v": torch.matmul(enc_out, p.cross_attn.wv).reshape(B, Skv, K, hd)
-              .to(dtype)}
+    cross = [{"k": kv(p.cross_attn.wk), "v": kv(p.cross_attn.wv)}
              for p in params.dec_layers]
-    return {"self": _stacked(one, cfg.n_dec_layers), "cross": _stack(cross)}
+    caches = {"self": _stacked(one, cfg.n_dec_layers), "cross": _stack(cross)}
+    if axis_size(mesh) > 1:
+        caches = {key: mesh_cache(c, mesh) for key, c in caches.items()}
+    return caches
+
+
+def _decode(params: EncDec, cfg: ModelConfig, tokens, caches: Dict, mesh,
+            inplace: bool):
+    h = embed_tokens(params, tokens, mesh)
+    # a copy: an in-place step advances every layer's pos as it goes
+    positions = caches["self"]["pos"][0].expand(h.shape[0], 1).clone()
+    new_self = []
+    for i, p in enumerate(params.dec_layers):
+        h, c, _ = _dec_block(p, h, positions, None, cfg,
+                             self_cache=_index(caches["self"], i),
+                             cross_cache=_index(caches["cross"], i), mesh=mesh,
+                             inplace=inplace)
+        new_self.append(c)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    logits = _logits(params, h, mesh)[:, 0]
+    if inplace:
+        return logits, caches
+    return logits, {"self": _stack(new_self), "cross": caches["cross"]}
 
 
 def decode_step(params: EncDec, cfg: ModelConfig, tokens, caches: Dict,
                 mesh=None):
     """tokens: [B, 1] target token; caches from ``make_dec_caches``.
     Returns (f32 logits [B, V], new caches); ``caches`` is not modified."""
-    h = embed_tokens(params, tokens, mesh)
-    positions = caches["self"]["pos"][0].expand(h.shape[0], 1)
-    new_self = []
-    for i, p in enumerate(params.dec_layers):
-        h, c, _ = _dec_block(p, h, positions, None, cfg,
-                             self_cache=_index(caches["self"], i),
-                             cross_cache=_index(caches["cross"], i), mesh=mesh)
-        new_self.append(c)
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return _logits(params, h, mesh)[:, 0], {"self": _stack(new_self),
-                                      "cross": caches["cross"]}
+    return _decode(params, cfg, tokens, caches, mesh, inplace=False)
 
 
-__all__ = ["DecBlock", "EncDec", "decode_step", "decode_train", "encode",
-           "init", "loss_fn", "make_dec_caches", "unembed_matrix"]
+def decode_step_(params: EncDec, cfg: ModelConfig, tokens, caches: Dict,
+                 mesh=None) -> torch.Tensor:
+    """``decode_step`` writing the self caches in place (``index_copy_``,
+    ``pos`` advanced in place; the cross caches are read only).  Returns
+    the f32 logits [B, V]."""
+    return _decode(params, cfg, tokens, caches, mesh, inplace=True)[0]
+
+
+__all__ = ["DecBlock", "EncDec", "decode_step", "decode_step_",
+           "decode_train", "encode", "init", "loss_fn", "make_dec_caches",
+           "unembed_matrix"]

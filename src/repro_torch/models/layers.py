@@ -39,6 +39,7 @@ from .sharding import (
     axis_index,
     axis_size,
     copy_to,
+    div_or_none,
     gather_seq,
     reduce_,
     reduce_from,
@@ -221,6 +222,7 @@ def attention(
     kv_from: Optional[torch.Tensor] = None,  # cross-attention source [B, Skv, d]
     cross: bool = False,
     mesh=None,
+    inplace: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention.  With ``cache`` and S == 1 runs one decode step.
 
@@ -231,16 +233,22 @@ def attention(
     ``min(pos, window - 1)`` — the clamp of the reference's
     ``dynamic_update_slice``, so a step at ``pos >= window`` overwrites the
     last slot — and attends to the slots ``<= pos``.  Caches are not
-    modified; the step returns new ones.  Under a ``model`` axis each rank
-    runs its heads (``_heads``), and the caches of a prefill hold those
-    heads; a decode step takes the reference's layout, the window split
-    over ``model`` (``_decode_split``).
+    modified; the step returns new ones.  With ``inplace`` the step writes
+    its slot into the given cache (``index_copy_``), advances its ``pos``
+    in place and returns that cache: no step copies a window.
+
+    Under a ``model`` axis each rank runs its heads (``_heads``); a
+    prefill's caches come back in the reference's layout
+    (``launch.partition.cache_specs``: every kv head, the window split over
+    ``model`` where it divides, ``_prefill_layout``), and a decode step
+    takes that layout, split or whole (``_decode_split``).
     """
     B, S, d = x.shape
     hd = cfg.hd
     if cache is not None and S == 1 and axis_size(mesh) > 1 \
             and ("pos" in cache or (cross and "k" in cache)):
-        return _decode_split(p, x, positions, cfg, cache, cross, mesh)
+        return _decode_split(p, x, positions, cfg, cache, cross, mesh,
+                             inplace)
     wq, wk, wv, wo, H, K, split = _heads(p, cfg, mesh)
     G = H // K
     if split:
@@ -272,34 +280,30 @@ def attention(
         pos = cache["pos"]
         span = cache["k"].shape[1]
         slot = pos.clamp(0, span - 1).reshape(1).long()
+        valid = torch.arange(span, device=x.device) <= pos
         quant = "k_scale" in cache
         if quant:
             k8, ks = kv_quantize(k)
             v8, vs = kv_quantize(v)
-            ck = cache["k"].index_copy(1, slot, k8)
-            cv = cache["v"].index_copy(1, slot, v8)
-            cks = cache["k_scale"].index_copy(1, slot, ks)
-            cvs = cache["v_scale"].index_copy(1, slot, vs)
-            # fold the scales outside the int8 products, as the reference
-            s = torch.einsum("bqkgh,bskh->bkgqs", q.reshape(B, 1, K, G, hd).float(),
-                             ck.float())
-            s = s * cks[..., 0].permute(0, 2, 1)[:, :, None, None, :]
-            s = s / np.sqrt(hd)
+            vals = {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
         else:
-            ck = cache["k"].index_copy(1, slot, k.to(cache["k"].dtype))
-            cv = cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))
-            s = torch.einsum("bqkgh,bskh->bkgqs", q.reshape(B, 1, K, G, hd).float(),
-                             ck.float()) / np.sqrt(hd)
-        valid = torch.arange(span, device=x.device) <= pos
+            vals = {"k": k, "v": v}
+        new_cache = _write_slot(cache, vals, slot, inplace)
+        ck, cv = new_cache["k"], new_cache["v"]
+        s = torch.einsum("bqkgh,bskh->bkgqs", q.reshape(B, 1, K, G, hd).float(),
+                         ck.float())
+        if quant:
+            # fold the scales outside the int8 products, as the reference
+            s = s * new_cache["k_scale"][..., 0].permute(0, 2, 1)[
+                :, :, None, None, :]
+        s = s / np.sqrt(hd)
         s = torch.where(valid, s, -torch.inf)
         pr = torch.softmax(s, dim=-1)
         if quant:
-            pr = pr * cvs[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+            pr = pr * new_cache["v_scale"][..., 0].permute(0, 2, 1)[
+                :, :, None, None, :]
         o = torch.einsum("bkgqs,bskh->bqkgh", pr, cv.float())
         o = o.to(x.dtype).reshape(B, 1, H * hd)
-        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
-        if quant:
-            new_cache.update(k_scale=cks, v_scale=cvs)
         return out_proj(o), new_cache
 
     if cross and S == 1:
@@ -325,20 +329,51 @@ def attention(
                          "pos": pos}
         else:
             out_cache = {"k": k, "v": v, "pos": pos}
+        if axis_size(mesh) > 1:
+            G0 = cfg.n_heads // cfg.n_kv_heads
+            starts = ([j * H // G0 for j in range(axis_size(mesh))]
+                      if split else None)
+            out_cache = _prefill_layout(out_cache, cfg, mesh, starts)
     elif cache is not None:
         out_cache = {"k": k, "v": v}
     return out, out_cache
 
 
+def _write_slot(cache: Dict, vals: Dict, slot: torch.Tensor, inplace: bool,
+                here: Optional[torch.Tensor] = None) -> Dict:
+    """``cache`` with ``vals`` (each [B, 1, ...], cast to the cache's
+    dtypes) written at window index ``slot``: a new dict of new tensors and
+    ``pos + 1``, or, ``inplace``, the cache itself, written with
+    ``index_copy_`` and its ``pos`` advanced in place.  Where ``here`` is
+    false the slot keeps its value (a window split over ``model`` whose
+    slot another rank holds)."""
+    out = dict(cache)
+    for key, val in vals.items():
+        buf = cache[key]
+        val = val.to(buf.dtype)
+        if here is not None:
+            val = torch.where(here, val, buf.index_select(1, slot))
+        out[key] = (buf.index_copy_(1, slot, val) if inplace
+                    else buf.index_copy(1, slot, val))
+    if inplace:
+        cache["pos"].add_(1)
+        return cache
+    out["pos"] = cache["pos"] + 1
+    return out
+
+
 def _decode_split(p: Attention, x, positions, cfg: ModelConfig, cache: Dict,
-                  cross: bool, mesh):
+                  cross: bool, mesh, inplace: bool = False):
     """One decode step under a ``model`` axis on the reference's cache
-    layout (``launch.partition.cache_specs``): each rank holds a slice of
-    the window (of the source, for a cross-attention cache) for every kv
-    head.  The step's q, k and v columns are gathered whole, the rank whose
-    slice holds the write slot writes it, and each rank attends over its
-    slice; the softmax's max, sum and weighted values are reduced over
-    ``model``, and ``wo``'s row split sums the output as in training."""
+    layout (``launch.partition.cache_specs``), whose window is split over
+    ``model`` or whole on every rank (``kv_window``).  The step's q, k and
+    v columns are gathered whole.  A split window: each rank holds a slice
+    of it (of the source, for a cross-attention cache) for every kv head,
+    the rank whose slice holds the write slot writes it, each rank attends
+    over its slice, and the softmax's max, sum and weighted values are
+    reduced over ``model``.  A whole window: every rank writes the slot and
+    attends over the whole window.  Either way ``wo``'s row split sums the
+    output, as in training."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // K
@@ -348,40 +383,30 @@ def _decode_split(p: Attention, x, positions, cfg: ModelConfig, cache: Dict,
         return y if w.shape[1] == n else all_gather(y, mesh, dim=-1)
 
     q = cols(p.wq, H * hd).reshape(B, 1, H, hd)
+    W, split = kv_window(cache, mesh)
     span = cache["k"].shape[1]
-    lo = axis_index(mesh) * span
+    lo = axis_index(mesh) * span if split else 0
     quant = "k_scale" in cache
-    if cross:
-        valid = None
-        ck, cv = cache["k"], cache["v"]
-        new_cache = cache
-    else:
+    valid = None
+    new_cache = cache
+    if not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(cols(p.wk, K * hd).reshape(B, 1, K, hd), positions,
                        cfg.rope_theta)
         v = cols(p.wv, K * hd).reshape(B, 1, K, hd)
         pos = cache["pos"]
-        local = pos.clamp(0, span * axis_size(mesh) - 1).reshape(1).long() - lo
-        here = (local >= 0) & (local < span)
-        idx = local.clamp(0, span - 1)
-
-        def write(buf, val):
-            old = buf.index_select(1, idx)
-            return buf.index_copy(1, idx, torch.where(here, val.to(buf.dtype),
-                                                      old))
-
+        valid = lo + torch.arange(span, device=x.device) <= pos
+        local = pos.clamp(0, W - 1).reshape(1).long() - lo
+        here = (local >= 0) & (local < span) if split else None
         if quant:
             k8, ks = kv_quantize(k)
             v8, vs = kv_quantize(v)
-            ck, cv = write(cache["k"], k8), write(cache["v"], v8)
-            new_cache = {"k": ck, "v": cv,
-                         "k_scale": write(cache["k_scale"], ks),
-                         "v_scale": write(cache["v_scale"], vs),
-                         "pos": pos + 1}
+            vals = {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
         else:
-            ck, cv = write(cache["k"], k), write(cache["v"], v)
-            new_cache = {"k": ck, "v": cv, "pos": pos + 1}
-        valid = lo + torch.arange(span, device=x.device) <= pos
+            vals = {"k": k, "v": v}
+        new_cache = _write_slot(cache, vals, local.clamp(0, span - 1),
+                                inplace, here)
+    ck, cv = new_cache["k"], new_cache["v"]
     s = torch.einsum("bqkgh,bskh->bkgqs", q.reshape(B, 1, K, G, hd).float(),
                      ck.float())
     if quant:
@@ -390,15 +415,19 @@ def _decode_split(p: Attention, x, positions, cfg: ModelConfig, cache: Dict,
     s = s / np.sqrt(hd)
     if valid is not None:
         s = torch.where(valid, s, -torch.inf)
-    m = reduce_(s.amax(-1, keepdim=True), mesh, op=dist.ReduceOp.MAX)
-    pr = torch.exp(s - m)
-    den = reduce_from(pr.sum(-1), mesh)                                # [B,K,G,1]
+    if split:
+        m = reduce_(s.amax(-1, keepdim=True), mesh, op=dist.ReduceOp.MAX)
+        pr = torch.exp(s - m)
+        den = reduce_from(pr.sum(-1), mesh)                            # [B,K,G,1]
+    else:
+        pr = torch.softmax(s, dim=-1)
     if quant:
         pr = pr * new_cache["v_scale"][..., 0].permute(0, 2, 1)[:, :, None,
                                                                 None, :]
-    o = reduce_from(torch.einsum("bkgqs,bskh->bqkgh", pr, cv.float()), mesh)
-    o = (o / den.permute(0, 3, 1, 2)[..., None]).to(x.dtype).reshape(
-        B, 1, H * hd)
+    o = torch.einsum("bkgqs,bskh->bqkgh", pr, cv.float())
+    if split:
+        o = reduce_from(o, mesh) / den.permute(0, 3, 1, 2)[..., None]
+    o = o.to(x.dtype).reshape(B, 1, H * hd)
     if p.wo.shape[0] < H * hd:
         r0 = axis_index(mesh) * p.wo.shape[0]
         out = row_parallel_matmul(o[..., r0:r0 + p.wo.shape[0]], p.wo, cfg,
@@ -406,6 +435,118 @@ def _decode_split(p: Attention, x, positions, cfg: ModelConfig, cache: Dict,
     else:
         out = torch.matmul(o, p.wo)
     return out, new_cache
+
+
+# =============================================================================
+# KV caches on a mesh: the window's layout
+# =============================================================================
+
+#: the leaves of an attention cache that hold the window (axis -3)
+KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
+def window_leaf(window: int, lead=(), device=None) -> torch.Tensor:
+    """The ``"window"`` leaf of a cache dict on a mesh: a tensor of no
+    elements, ``[*lead, 0, window]``, whose last dim is the global KV
+    window.  It rides with the cache through stacking, indexing and
+    ``cache_specs`` (which replicates it), costs no memory, and is read
+    from its shape, never its values (so a trace on ``meta`` reads it)."""
+    return torch.empty((*lead, 0, window), dtype=torch.int8, device=device)
+
+
+def kv_window(cache: Dict, mesh) -> Tuple[int, bool]:
+    """(global window, whether it is split over ``model``) of an attention
+    cache dict (one layer's or stacked) on ``mesh``.
+
+    ``partition.cache_specs`` splits the window over ``model`` where it
+    divides, as the reference does; otherwise every rank holds it whole.
+    A local span alone cannot tell the two apart (3 slots on model = 2 are
+    a whole window of 3 or a split one of 6), so the layout travels with
+    the cache as its ``"window"`` leaf (``window_leaf``), which a mesh's
+    prefill, ``lm.grow_caches``, ``encdec.make_dec_caches`` and
+    ``partition.shard_caches`` add.  A cache without one is taken as split
+    only where no other layout gives its span: a span that divides
+    ``model`` is never a whole window; any other span raises."""
+    span = cache["k"].shape[-3]
+    n = axis_size(mesh)
+    if "window" in cache:
+        W = cache["window"].shape[-1]
+    elif span % n == 0:
+        W = span * n
+    else:
+        raise ValueError(
+            f"a KV cache of {span} slots on model = {n} is a whole window of "
+            f"{span} or a split one of {span * n}: give the cache its "
+            f"'window' leaf (partition.shard_caches, a mesh's prefill, "
+            f"lm.grow_caches(mesh=...))")
+    split = div_or_none(W, "model", mesh) is not None
+    if (W // n if split else W) != span:
+        raise ValueError(f"a KV cache of {span} slots per rank does not hold "
+                         f"its window of {W} on model = {n}")
+    return W, split
+
+
+def mesh_cache(cache: Dict, mesh) -> Dict:
+    """A whole attention cache dict (every kv head, the whole window; one
+    layer's or stacked) cut to this rank's share of ``cache_specs``'
+    layout on ``mesh``: the window split over ``model`` where it divides,
+    with its ``"window"`` leaf."""
+    k = cache["k"]
+    W = k.shape[-3]
+    split = div_or_none(W, "model", mesh) is not None
+    n, r = axis_size(mesh), axis_index(mesh)
+    out = {}
+    for key, val in cache.items():
+        if key in KV_LEAVES and split:
+            val = val.chunk(n, dim=val.ndim - 3)[r].contiguous()
+        out[key] = val
+    out["window"] = window_leaf(W, k.shape[:-4], k.device)
+    return out
+
+
+def whole_cache(cache: Dict, mesh) -> Dict:
+    """The inverse of ``mesh_cache``: a split window gathered over
+    ``model``, the ``"window"`` leaf dropped (collective where split)."""
+    _, split = kv_window(cache, mesh)
+    return {key: (all_gather(val, mesh, dim=val.ndim - 3)
+                  if key in KV_LEAVES and split else val)
+            for key, val in cache.items() if key != "window"}
+
+
+def _prefill_layout(cache: Dict, cfg: ModelConfig, mesh, starts) -> Dict:
+    """A prefill's cache on a mesh, this rank's kv heads over the whole
+    prompt (``starts``: each rank's first kv head; None when every rank
+    holds all of them), in ``cache_specs``' layout (``mesh_cache``).  Where
+    the ranks hold distinct heads and the window splits, one
+    ``all_to_all`` sends each rank's heads of every other rank's window
+    slice there; otherwise the heads are gathered and the window cut."""
+    K = cfg.n_kv_heads
+    n = axis_size(mesh)
+    S = cache["k"].shape[1]
+    whole = {"pos": cache["pos"]}
+    if starts is None:
+        whole.update({key: cache[key] for key in cache if key != "pos"})
+        return mesh_cache(whole, mesh)
+    Kl = cache["k"].shape[2]
+    if Kl * n == K and div_or_none(S, "model", mesh) is not None:
+        out = dict(whole)
+        for key, t in cache.items():
+            if key == "pos":
+                continue
+            B, _, _, e = t.shape
+            x = t.reshape(B, n, S // n, Kl, e).permute(1, 0, 2, 3, 4)
+            y = all_to_all(x.contiguous(), mesh)   # [n, B, S/n, Kl, e]
+            out[key] = y.permute(1, 2, 0, 3, 4).reshape(B, S // n, K, e)
+        out["window"] = window_leaf(S, (), cache["k"].device)
+        return out
+    # rank j's heads start at starts[j]; take each kv head from the first
+    # rank that holds it
+    idx = [next(j * Kl + h - starts[j] for j in range(n)
+                if starts[j] <= h < starts[j] + Kl) for h in range(K)]
+    for key, t in cache.items():
+        if key != "pos":
+            whole[key] = all_gather(t, mesh, dim=2)[:, :, idx]
+    return mesh_cache(whole, mesh)
 
 
 def make_cache(cfg: ModelConfig, batch: int, length: int,

@@ -29,6 +29,9 @@ Entry points (the reference's, with the module in place of ``params``):
   loss_fn(params, cfg, batch, mesh)        -> (loss, metrics)
   prefill(params, cfg, tokens|embeds)      -> (last-token logits, caches)
   decode_step(params, cfg, token, caches, mesh) -> (logits, caches)
+  decode_step_(params, cfg, token, caches, mesh) -> logits (caches written
+                                              in place: what a CUDA graph
+                                              replays, ``launch.steps``)
 """
 
 from __future__ import annotations
@@ -42,8 +45,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .common import dense_init_, param, rms_norm
 from .config import ModelConfig
-from .layers import MLP, Attention, MoE, attention, make_cache, mlp, moe
-from .sharding import axis_index, copy_to, gather_seq, reduce_, reduce_from
+from .layers import (MLP, Attention, MoE, attention, kv_window, make_cache,
+                     mesh_cache, mlp, moe, whole_cache)
+from .sharding import (axis_index, axis_size, copy_to, gather_seq, reduce_,
+                       reduce_from)
 from .ssm import SSM, make_ssm_cache, ssm_block
 
 
@@ -138,10 +143,10 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 # =============================================================================
 
 def _dense_block(p: AttnBlock, h, positions, cfg: ModelConfig, mesh=None,
-                 cache=None):
+                 cache=None, inplace=False):
     a, new_cache = attention(p.attn, rms_norm(h, p.ln1, cfg.norm_eps),
                              positions, cfg, causal=True, cache=cache,
-                             mesh=mesh)
+                             mesh=mesh, inplace=inplace)
     h = h + a
     aux = torch.zeros((), device=h.device)
     if cfg.family == "moe":
@@ -151,17 +156,18 @@ def _dense_block(p: AttnBlock, h, positions, cfg: ModelConfig, mesh=None,
     return h + m, aux, new_cache
 
 
-def _ssm_layer(p: SSMBlock, h, cfg: ModelConfig, cache=None, mesh=None):
+def _ssm_layer(p: SSMBlock, h, cfg: ModelConfig, cache=None, mesh=None,
+               inplace=False):
     s, new_cache = ssm_block(p.ssm, rms_norm(h, p.ln, cfg.norm_eps), cfg,
-                             cache=cache, mesh=mesh)
+                             cache=cache, mesh=mesh, inplace=inplace)
     return h + s, new_cache
 
 
 def _shared_attn_block(p: AttnBlock, h, positions, cfg: ModelConfig,
-                       cache=None, mesh=None):
+                       cache=None, mesh=None, inplace=False):
     a, new_cache = attention(p.attn, rms_norm(h, p.ln1, cfg.norm_eps),
                              positions, cfg, causal=True, cache=cache,
-                             mesh=mesh)
+                             mesh=mesh, inplace=inplace)
     h = h + a
     h = h + mlp(p.mlp, rms_norm(h, p.ln2, cfg.norm_eps), cfg, mesh)
     return h, new_cache
@@ -333,18 +339,93 @@ def make_caches(cfg: ModelConfig, batch: int, length: int,
     }
 
 
-def grow_caches(cfg: ModelConfig, caches: Dict, window: int) -> Dict:
+def _pad_window(cache: Dict, window: int) -> Dict:
+    """Axis -3 (the window) of every KV leaf padded up to ``window``."""
+    pad = window - cache["k"].shape[-3]
+    return {key: (val if key == "pos" else torch.nn.functional.pad(
+        val, (0, 0, 0, 0, 0, pad))) for key, val in cache.items()}
+
+
+def grow_caches(cfg: ModelConfig, caches: Dict, window: int,
+                mesh=None) -> Dict:
     """Pad attention KV windows (from prefill) up to ``window`` for
-    decoding: axis 2 of the stacked [L, B, S, ...] tensors."""
+    decoding: axis 2 of the stacked [L, B, S, ...] tensors.
+
+    Under a ``model`` axis the caches are in ``cache_specs``' layout
+    (``layers.kv_window``): a split window is gathered whole, padded at its
+    end, and cut again by ``cache_specs`` at the new window (padding each
+    rank's slice would put the padding inside the window)."""
     out = dict(caches)
     attn = caches.get("attn")
-    if attn is not None and attn["k"].shape[2] < window:
-        pad = window - attn["k"].shape[2]
-        out["attn"] = {
-            key: (val if key == "pos" else torch.nn.functional.pad(
-                val, (0, 0, 0, 0, 0, pad)))
-            for key, val in attn.items()}
+    if attn is None:
+        return out
+    if axis_size(mesh) > 1:
+        if kv_window(attn, mesh)[0] < window:
+            out["attn"] = mesh_cache(
+                _pad_window(whole_cache(attn, mesh), window), mesh)
+        return out
+    if attn["k"].shape[2] < window:
+        out["attn"] = _pad_window(attn, window)
     return out
+
+
+def _decode(params, cfg: ModelConfig, tokens, caches: Dict, mesh, embeds,
+            inplace: bool):
+    """The body of ``decode_step`` and ``decode_step_``."""
+    h = embed_tokens(params, tokens, mesh) if embeds is None else embeds
+    B = h.shape[0]
+    if "attn" in caches:
+        # a copy: an in-place step advances every layer's pos as it goes
+        positions = caches["attn"]["pos"][0].expand(B, 1).clone()
+
+    if cfg.family in ("dense", "moe"):
+        new = []
+        for i, p in enumerate(params.layers):
+            h, _, c = _dense_block(p, h, positions, cfg, mesh,
+                                   cache=_index(caches["attn"], i),
+                                   inplace=inplace)
+            new.append(c)
+        new_caches = caches if inplace else {"attn": _stack(new)}
+    elif cfg.family == "ssm":
+        new = []
+        for i, p in enumerate(params.layers):
+            h, c = _ssm_layer(p, h, cfg, cache=_index(caches["ssm"], i),
+                              mesh=mesh, inplace=inplace)
+            new.append(c)
+        new_caches = caches if inplace else {"ssm": _stack(new)}
+    else:  # hybrid
+        G, P, tail = _groups(cfg)
+        main, attn = [], []
+        for g in range(G):
+            group_c = _index(caches["ssm_main"], g)
+            group = []
+            for j in range(P):
+                h, c = _ssm_layer(params.layers[g * P + j], h, cfg,
+                                  cache=_index(group_c, j), mesh=mesh,
+                                  inplace=inplace)
+                group.append(c)
+            if not inplace:
+                main.append(_stack(group))
+            h, c = _shared_attn_block(params.shared_attn, h, positions, cfg,
+                                      cache=_index(caches["attn"], g),
+                                      mesh=mesh, inplace=inplace)
+            attn.append(c)
+        tails = []
+        for j in range(tail):
+            h, c = _ssm_layer(params.layers[G * P + j], h, cfg,
+                              cache=_index(caches["ssm_tail"], j),
+                              mesh=mesh, inplace=inplace)
+            tails.append(c)
+        if inplace:
+            new_caches = caches
+        else:
+            new_caches = {"ssm_main": _stack(main),
+                          "ssm_tail": (_stack(tails) if tail
+                                       else caches["ssm_tail"]),
+                          "attn": _stack(attn)}
+
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return _logits(params, h, mesh)[:, 0], new_caches
 
 
 def decode_step(params: LM, cfg: ModelConfig, tokens, caches: Dict, mesh=None,
@@ -353,60 +434,27 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, caches: Dict, mesh=None,
 
     Returns (f32 logits [B, V], new caches); ``caches`` is not modified.
     Decode positions come from ``caches["attn"]["pos"][0]``."""
-    h = embed_tokens(params, tokens, mesh) if embeds is None else embeds
-    B = h.shape[0]
+    return _decode(params, cfg, tokens, caches, mesh, embeds, inplace=False)
 
-    if cfg.family in ("dense", "moe"):
-        positions = caches["attn"]["pos"][0].expand(B, 1)
-        new = []
-        for i, p in enumerate(params.layers):
-            h, _, c = _dense_block(p, h, positions, cfg, mesh,
-                                   cache=_index(caches["attn"], i))
-            new.append(c)
-        new_caches = {"attn": _stack(new)}
-    elif cfg.family == "ssm":
-        new = []
-        for i, p in enumerate(params.layers):
-            h, c = _ssm_layer(p, h, cfg, cache=_index(caches["ssm"], i),
-                              mesh=mesh)
-            new.append(c)
-        new_caches = {"ssm": _stack(new)}
-    else:  # hybrid
-        G, P, tail = _groups(cfg)
-        positions = caches["attn"]["pos"][0].expand(B, 1)
-        main, attn = [], []
-        for g in range(G):
-            group_c = _index(caches["ssm_main"], g)
-            group = []
-            for j in range(P):
-                h, c = _ssm_layer(params.layers[g * P + j], h, cfg,
-                                  cache=_index(group_c, j), mesh=mesh)
-                group.append(c)
-            main.append(_stack(group))
-            h, c = _shared_attn_block(params.shared_attn, h, positions, cfg,
-                                      cache=_index(caches["attn"], g),
-                                      mesh=mesh)
-            attn.append(c)
-        new_tail = caches["ssm_tail"]
-        if tail:
-            tails = []
-            for j in range(tail):
-                h, c = _ssm_layer(params.layers[G * P + j], h, cfg,
-                                  cache=_index(caches["ssm_tail"], j),
-                                  mesh=mesh)
-                tails.append(c)
-            new_tail = _stack(tails)
-        new_caches = {"ssm_main": _stack(main), "ssm_tail": new_tail,
-                      "attn": _stack(attn)}
 
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return _logits(params, h, mesh)[:, 0], new_caches
+def decode_step_(params: LM, cfg: ModelConfig, tokens, caches: Dict,
+                 mesh=None, embeds=None) -> torch.Tensor:
+    """``decode_step`` writing ``caches`` in place: each attention layer
+    writes its slot (``index_copy_``) and advances its ``pos``, each SSM
+    layer writes its ``conv`` and ``state`` (``copy_``); no window is
+    copied.  Returns the f32 logits [B, V], the same bits as
+    ``decode_step``'s."""
+    return _decode(params, cfg, tokens, caches, mesh, embeds,
+                   inplace=True)[0]
 
 
 def prefill(params: LM, cfg: ModelConfig, tokens=None, embeds=None, mesh=None):
     """Process the prompt; returns (last-position f32 logits, caches primed
     at S).  For attention families the cache window equals the prompt
-    length (``grow_caches`` pads it for decoding)."""
+    length (``grow_caches`` pads it for decoding).  Under a ``model`` axis
+    the caches come back in ``launch.partition.cache_specs``' layout, as
+    the reference's ``out_shardings`` give them, ready for ``decode_step``
+    on the same mesh."""
     h = embed_tokens(params, tokens, mesh) if embeds is None else embeds
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)

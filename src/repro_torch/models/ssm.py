@@ -29,7 +29,7 @@ from torch import nn
 
 from .common import dense_init_, normal_init_, param, rms_norm
 from .config import ModelConfig
-from .sharding import all_gather, axis_index, axis_size
+from .sharding import all_gather, axis_index, axis_size, div_or_none
 
 
 class SSM(nn.Module):
@@ -154,11 +154,16 @@ class _Leaves:
 
 
 def ssm_block(p: SSM, u: torch.Tensor, cfg: ModelConfig,
-              cache: Optional[Dict] = None, mesh=None
+              cache: Optional[Dict] = None, mesh=None, inplace: bool = False
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One Mamba2 block.  u: [B, S, d].  With ``cache`` and S == 1: decode step.
 
-    cache = {"conv": [B, Kw-1, Ch], "state": [B, H, P, N]}.
+    cache = {"conv": [B, Kw-1, Ch], "state": [B, H, P, N]}.  A decode step
+    returns new cache tensors, or, with ``inplace``, writes them into the
+    given ones (``copy_``) and returns that cache.  Under a ``model`` axis
+    the caches take the reference's layout (``launch.partition.
+    cache_specs``): ``state`` split by heads where H divides ``model``,
+    ``conv`` by channels where Ch does, each on its own (``_local_cache``).
     """
     B, S, d = u.shape
     di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
@@ -170,11 +175,12 @@ def ssm_block(p: SSM, u: torch.Tensor, cfg: ModelConfig,
     if cache is not None and S == 1:
         # ---- decode: O(1) state update --------------------------------------
         conv_c, state = cache["conv"], cache["state"]
-        # the reference's layout under ``model`` (cache_specs): heads and
-        # conv channels split; every rank runs the whole block
-        split = state.shape[1] < H
-        if split:
+        # every rank runs the whole block: gather each split leaf whole
+        split_conv = conv_c.shape[2] < di + 2 * N
+        split_state = state.shape[1] < H
+        if split_conv:
             conv_c = all_gather(conv_c, mesh, dim=2)
+        if split_state:
             state = all_gather(state, mesh, dim=1)
         window = torch.cat([conv_c, xbc], dim=1)                     # [B,Kw,Ch]
         conv_out = torch.einsum("bkc,kc->bc", window.float(), p.conv.float())
@@ -192,10 +198,15 @@ def ssm_block(p: SSM, u: torch.Tensor, cfg: ModelConfig,
         y = rms_norm(y.to(u.dtype), p.norm, cfg.norm_eps)
         out = torch.matmul(y, p.out_proj)
         conv_c = window[:, 1:]
-        if split:
-            i, n = axis_index(mesh), axis_size(mesh)
+        i, n = axis_index(mesh), axis_size(mesh)
+        if split_conv:
             conv_c = conv_c.chunk(n, dim=2)[i]
+        if split_state:
             h = h.chunk(n, dim=1)[i]
+        if inplace:
+            cache["conv"].copy_(conv_c)
+            cache["state"].copy_(h)
+            return out, cache
         return out, {"conv": conv_c, "state": h}
 
     # ---- full sequence -------------------------------------------------------
@@ -212,8 +223,25 @@ def ssm_block(p: SSM, u: torch.Tensor, cfg: ModelConfig,
     out = torch.matmul(y, p.out_proj)
     new_cache = None
     if cache is not None:
-        new_cache = {"conv": xbc_tail(u, p, cfg, cfg.ssm_conv), "state": h_fin}
+        new_cache = _local_cache(
+            {"conv": xbc_tail(u, p, cfg, cfg.ssm_conv), "state": h_fin}, cfg,
+            mesh)
     return out, new_cache
+
+
+def _local_cache(cache: Dict, cfg: ModelConfig, mesh) -> Dict:
+    """A whole SSM cache cut to this rank's share of ``cache_specs``'
+    layout: ``state`` by heads where H divides ``model``, ``conv`` by
+    channels where Ch does (no split without a ``model`` axis)."""
+    n, i = axis_size(mesh), axis_index(mesh)
+    if n == 1:
+        return cache
+    out = dict(cache)
+    if div_or_none(cfg.ssm_heads, "model", mesh) is not None:
+        out["state"] = cache["state"].chunk(n, dim=1)[i].contiguous()
+    if div_or_none(cfg.d_inner + 2 * cfg.ssm_state, "model", mesh) is not None:
+        out["conv"] = cache["conv"].chunk(n, dim=2)[i].contiguous()
+    return out
 
 
 def xbc_tail(u, p: SSM, cfg: ModelConfig, Kw: int):

@@ -10,9 +10,12 @@ parameters' device, so the schedule is computed there without a host sync.
 ``adamw_update`` keeps the reference's formula and order: clip every
 gradient by the global norm, then the moments, then the bias-corrected
 ``mhat / (sqrt(nhat) + eps)`` plus decoupled weight decay, then the cast
-to each parameter's dtype.  It runs as ``torch._foreach_*`` calls over
-groups of leaves (at most ``_GROUP`` elements each, which bounds the
-temporaries), and updates ``master``, ``mu`` and ``nu`` in place.
+to each parameter's dtype.  It updates groups of leaves (at most
+``_GROUP`` elements each) through ``kernels.adamw.adamw_fused``: on the
+card one launch of the fused kernel per group (the counterpart of XLA's
+fusion of this update under ``jit``), on the CPU its plain version, the
+``torch._foreach_*`` sequence, bit for bit the same; ``master``, ``mu`` and
+``nu`` are updated in place.
 
 On a mesh (``mesh`` and the optimizer state's specs, ``launch.partition.
 opt_specs``) the state holds this rank's ZeRO slices: each data rank
@@ -31,11 +34,13 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from ..kernels.adamw import adamw_fused
 from ..launch.mesh import dp_axes
 from ..launch.partition import gather_named
 from ..models.sharding import reduce_
 
-# elements per group of leaves that one round of foreach calls updates
+# elements per group of leaves that one fused launch (or one round of the
+# plain version's foreach calls, whose temporaries it bounds) updates
 _GROUP = 1 << 26
 
 
@@ -158,32 +163,12 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: Dict[str, Any],
     new_params = {}
     for group in _groups([grads[n].numel() for n in names]):
         gn = [names[i] for i in group]
-        mu = [opt_state["mu"][n] for n in gn]
-        nu = [opt_state["nu"][n] for n in gn]
-        m = [opt_state["master"][n] for n in gn]
-        g = torch._foreach_mul([grads[n].float() for n in gn], scale)
-        # mu = b1 * mu + (1 - b1) * g
-        torch._foreach_mul_(mu, cfg.b1)
-        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - cfg.b1))
-        # nu = b2 * nu + (1 - b2) * g * g
-        gg = torch._foreach_mul(g, 1 - cfg.b2)
-        torch._foreach_mul_(gg, g)
-        torch._foreach_mul_(nu, cfg.b2)
-        torch._foreach_add_(nu, gg)
-        del g, gg
-        # m = m - lr * (mhat / (sqrt(nhat) + eps) + wd * m)
-        den = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, cfg.eps)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, den)
-        del den
-        torch._foreach_add_(upd, torch._foreach_mul(m, cfg.weight_decay))
-        torch._foreach_mul_(upd, lr)
-        torch._foreach_sub_(m, upd)
-        del upd
-        for n, mm in zip(gn, m):
-            new_params[n] = mm.to(params[n].dtype, copy=True)
+        new = adamw_fused(
+            [grads[n] for n in gn], [opt_state["master"][n] for n in gn],
+            [opt_state["mu"][n] for n in gn], [opt_state["nu"][n] for n in gn],
+            [params[n].dtype for n in gn], scale, lr, bc1, bc2, cfg.b1,
+            cfg.b2, cfg.eps, cfg.weight_decay)
+        new_params.update(zip(gn, new))
     if mesh is not None and mesh.size > 1:
         new_params = gather_named(new_params, specs, mesh, dp_axes(mesh))
     new_state = {"master": opt_state["master"], "mu": opt_state["mu"],

@@ -18,7 +18,11 @@ CPU.  One module fixture starts everything at once, against one deadline:
       last slot, which one rank holds); an int8 KV cache within 1e-5 too;
       attention whose q heads do not split on whole heads (3 heads, 1 kv
       head over 2 ranks: every leaf gathered) within 1e-5, its train loss
-      too;
+      too; and the repairs of mesh decode (``REPAIR_CASES``): a KV window
+      of 7 on model = 2 (whole on every rank, given its layout by
+      ``partition.shard_caches``), mamba2 with H = 3 heads and Ch = 128
+      conv channels, and each family's prefill on the mesh, its caches in
+      ``cache_specs``' layout, grown on the mesh and decoded three steps;
   * the four example twins (``examples/*_torch.py``) with ``--device cpu``
     at their smallest size: the numbers that come from ``repro_torch.core``
     (I/O counts, Theorem-1 bounds, Compact Growth) equal what the same
@@ -198,6 +202,101 @@ WORKER = textwrap.dedent("""
                 out_name[f'decode{i}'] = err(lgm, rows(lg1))
                 out_name[f'caches{i}'] = err(mine, local(caches, specs))
         res[name] = out_name
+
+    # the repaired faults, each against one device from the same weights:
+    # a KV window that does not divide model (7 on model = 2, whole on
+    # every rank), cut from one device's caches, its last step past the
+    # window; an SSM whose heads (3) and conv channels (128) split
+    # differently; and each family's prefill on the mesh -> grow_caches ->
+    # three decode steps (the window's layout travels as its 'window' leaf)
+    def drop(tree):
+        if isinstance(tree, dict):
+            return {k: drop(v) for k, v in tree.items() if k != 'window'}
+        return tree
+
+    def windows(tree, acc):
+        for k, v in (tree or {}).items():
+            if k == 'window':
+                acc.add(v.shape[-1])
+            elif isinstance(v, dict):
+                windows(v, acc)
+        return acc
+
+    def build(arch, changes):
+        cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
+        mod = encdec if cfg.family == 'encdec' else lm
+        full = mod.init(torch.Generator().manual_seed(0), cfg,
+                        dtype=torch.float32)
+        split = mod.init(torch.Generator().manual_seed(0), cfg,
+                         dtype=torch.float32)
+        partition.shard_module(split, partition.params_specs(mesh, split),
+                               mesh)
+        return cfg, mod, full.requires_grad_(False), \
+            split.requires_grad_(False)
+
+    def decode3(cfg, mod, full, split, caches, mine, toks, width, out_name):
+        specs = partition.cache_specs(mesh, cfg, caches)
+        for i in range(3):
+            if i == 2:              # a position past the window: it clamps
+                for c in (caches, mine):
+                    for sub in c.values():
+                        if isinstance(sub, dict) and 'pos' in sub:
+                            sub['pos'] = sub['pos'] + width
+            tok = toks[:, P + i:P + i + 1]
+            lg1, caches = mod.decode_step(full, cfg, tok, caches, one)
+            lgm, mine = mod.decode_step(split, cfg, rows(tok), mine, mesh)
+            out_name[f'decode{i}'] = err(lgm, rows(lg1))
+            out_name[f'caches{i}'] = err(drop(mine), local(caches, specs))
+
+    MORE = [('window-7', 'codeqwen1.5-7b', {}, 7),
+            ('ssm-h3-ch128', 'mamba2-1.3b',
+             {'d_model': 48, 'ssm_headdim': 32}, W)]
+    for name, arch, changes, width in MORE:
+        cfg, mod, full, split = build(arch, changes)
+        toks = torch.randint(0, cfg.vocab, (B, P + 4), generator=gen)
+        with torch.no_grad():
+            lg1, caches = lm.prefill(full, cfg, tokens=toks[:, :P], mesh=one)
+            caches = lm.grow_caches(cfg, caches, width)
+            mine = partition.shard_caches(mesh, cfg, caches)
+            out_name = {'prefill': 0.0}
+            decode3(cfg, mod, full, split, caches, mine, toks, width,
+                    out_name)
+        res[name] = out_name
+
+    for name, arch, changes, width in (
+            [(n + '/mesh-prefill', a, c, W) for n, a, c in CASES]
+            + [('window-7/mesh-prefill', 'codeqwen1.5-7b', {}, 7)]):
+        cfg, mod, full, split = build(arch, changes)
+        toks = torch.randint(0, cfg.vocab, (B, P + 4), generator=gen)
+        with torch.no_grad():
+            if cfg.family == 'encdec':
+                src = torch.randn(B, W, cfg.d_model, generator=gen)
+                pre = {'src_embeds': src, 'tgt_tokens': toks[:, :P]}
+                lg1, enc1 = make_prefill_step(cfg, one)(full, pre)
+                caches = encdec.make_dec_caches(full, cfg, enc1, width,
+                                                dtype=torch.float32)
+                lgm, encm = make_prefill_step(cfg, mesh)(
+                    split, {k: rows(v) for k, v in pre.items()})
+                mine = encdec.make_dec_caches(split, cfg, encm, width,
+                                              dtype=torch.float32, mesh=mesh)
+            else:
+                pre = ({'embeds': torch.randn(B, P, cfg.d_model,
+                                              generator=gen)}
+                       if cfg.modality == 'vision_stub'
+                       else {'tokens': toks[:, :P]})
+                lg1, caches = make_prefill_step(cfg, one)(full, pre)
+                caches = lm.grow_caches(cfg, caches, width)
+                lgm, mine = make_prefill_step(cfg, mesh)(
+                    split, {k: rows(v) for k, v in pre.items()})
+                mine = lm.grow_caches(cfg, mine, width, mesh=mesh)
+            out_name = {'prefill': err(lgm, rows(lg1))}
+            specs = partition.cache_specs(mesh, cfg, caches)
+            out_name['grown'] = err(drop(mine), local(caches, specs))
+            want = set() if cfg.family == 'ssm' else {width}
+            out_name['window'] = float(windows(mine, set()) != want)
+            decode3(cfg, mod, full, split, caches, mine, toks, width,
+                    out_name)
+        res[name] = out_name
     torch.save(res, f'{out}/rank{rank}.pt')
     dist.destroy_process_group()
 """) % {"cases": CASES, "tb": TRAIN_B, "ts": TRAIN_S}
@@ -328,6 +427,26 @@ def test_mesh_steps_on_the_reference_cache_layout_match_one_device(run,
         bad = {k: v for k, v in errs.items() if not v <= TOL}
         assert not bad, f"rank {r}: {bad}"
         assert {"prefill", "decode2", "caches2"} <= set(errs)
+
+
+#: the repairs' cases (``WORKER``): a whole window cut from one device, an
+#: SSM whose state and conv split differently, and each family's (and the
+#: whole window's) prefill on the mesh -> grow_caches -> decode
+REPAIR_CASES = (["window-7", "ssm-h3-ch128", "window-7/mesh-prefill"]
+                + [c[0] + "/mesh-prefill" for c in CASES])
+
+
+@pytest.mark.parametrize("name", REPAIR_CASES)
+def test_mesh_decode_repairs_match_one_device(run, name):
+    for r in range(4):
+        assert run["codes"][f"rank{r}"] == 0, \
+            run["logs"][f"rank{r}"][-4000:]
+        errs = run["ranks"][r][name]
+        bad = {k: v for k, v in errs.items() if not v <= TOL}
+        assert not bad, f"rank {r}: {bad}"
+        assert {"prefill", "decode2", "caches2"} <= set(errs)
+        if name.endswith("/mesh-prefill"):
+            assert {"grown", "window"} <= set(errs)
 
 
 # --------------------------------------------------------------------------- #
