@@ -103,26 +103,37 @@ Phases, each of which must pass (any failure exits non-zero):
      functional step's window copies for contrast); the captured tokens
      equal to the eager step's over every generated step; every kernel
      launch counter must be unchanged across the phase;
- 10. training (``repro_torch.launch.train``; every AdamW update one launch
-     of the fused kernel, ``kernels/csrc/adamw.cu``, per group of leaves):
+ 10. training (``repro_torch.launch.train``; on one card the whole step is
+     a CUDA graph, ``steps.CapturedTrainStep``: one eager warm-up step,
+     then one replay per step; every AdamW update one launch of the fused
+     kernel, ``kernels/csrc/adamw.cu``, per group of leaves):
      one arch per family and internvl2-26b's ``embeds`` batches,
-     reduced, in f32 with remat on: one ``make_train_step`` on the card
+     reduced, in f32 with remat on: one train step on the card
      against the same weights and batch on the CPU (loss within 1e-5,
      ``grad_norm`` within 1e-4, the new master within 1e-2 * lr plus
-     Adam's bound for near-zero gradients), and the loss and gradients with
-     remat on against remat off on the card; the entry point reduced
+     Adam's bound for near-zero gradients), the loss and gradients with
+     remat on against remat off on the card, and, under
+     ``torch.use_deterministic_algorithms(True)``, three calls of the
+     captured step (two replays) against three eager steps from the same
+     weights and batches: bit-equal where no atomics sum, the MoE's loss
+     within 1e-5 and ``grad_norm`` within 1e-4; the entry point reduced
      (``--reduced --steps 12 --ckpt-every 4 --inject-fault-at 6``) under
-     ``torch.use_deterministic_algorithms(True)``: one restart, finite and
-     falling losses, final weights and optimizer state bit-equal to a run
-     without the fault, and the last checkpoint restored into a fresh model
-     bit for bit; then granite-moe-1b-a400m at full width through
-     ``main`` at its defaults (bf16, B = 8, S = 128, remat on, 10 steps):
-     finite and falling losses, the first near ln(vocab), the final
+     deterministic algorithms: one capture and a replay in every later
+     step, one restart, finite and falling losses, final weights and
+     optimizer state bit-equal to a run without the fault, and the last
+     checkpoint restored into a fresh model bit for bit; then
+     granite-moe-1b-a400m at full width through
+     ``main`` at its defaults (bf16, B = 8, S = 128, remat on, 10 steps;
+     one capture, 9 replays): finite and falling losses, the first near
+     ln(vocab), the final
      checkpoint restored bit for bit; in f32 at B = 1, S = 16 the loss and
      gradient norm on the card against the CPU with the same weights; and a
-     ``train:`` JSON line with the parameter count, peak memory, the step's
-     device and call time, tokens/s, launches and host ops per step, its
-     bound, the checkpoint's save and restore time; the fused AdamW kernel
+     ``train:`` JSON line with the parameter count, the graph's figures
+     (capture seconds, captures, replays, device and call time per step,
+     device and host launches per step, the capture's and main's peak
+     memory), beside them the eager step's on the same state (peak memory,
+     device and call time, tokens/s, launches and host ops per step), the
+     step's bound, the checkpoint's save and restore time; the fused AdamW kernel
      launched once per group in every step of ``main`` and of
      ``train_step``, bit-equal to its plain version for one update of
      every group on the full-width state (bf16 and f32 parameters), and an
@@ -250,6 +261,10 @@ TRAIN_CPU_B, TRAIN_CPU_S = 1, 16
 # trace processing: device_ms traces one step (after one warm-up step), so
 # its whole-number-per-call check never retries
 TRAIN_TIMED_STEPS, TRAIN_PROFILED_STEPS = 5, 1
+# the captured train step (steps.CapturedTrainStep) against the eager one
+# per reduced arch: one warm-up step, then two replays; a replay is one
+# graph launch, so its trace is cheap
+TRAIN_GRAPH_STEPS, TRAIN_GRAPH_PROFILED_STEPS = 3, 2
 # phase 11: the mesh; one step per family at 2x2 (reduced), then
 # TRAIN_FULL at full width: the f32 check's batch; the collectives the
 # probe tries on CUDA tensors
@@ -2049,12 +2064,13 @@ def lm_slot_bytes(cfg, B):
         + cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state))
 
 
-def lm_trace(fn, runs=2, device_top=None):
+def lm_trace(fn, runs=2, device_top=None, host_launch=None):
     """Where a step's host time goes: from one torch.profiler trace of
     ``runs`` calls, the device activities per call and the host ops with
     the most self time (ms per call); with ``device_top`` (a dict), also
     fills it with the device kernels of the most total time (ms per
-    call)."""
+    call); with ``host_launch`` (a dict), with the launch API calls per
+    call, as ``host_launches`` counts them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2078,6 +2094,8 @@ def lm_trace(fn, runs=2, device_top=None):
                     + e.time_range.elapsed_us()
         for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
             device_top[name] = round(us / 1e3 / runs, 3)
+    if host_launch is not None:
+        host_launch.update(_launch_calls(prof, runs))
     return dev / runs, {e.key: round(e.self_cpu_time_total / 1e3 / runs, 3)
                         for e in top[:8]}
 
@@ -2205,12 +2223,16 @@ def host_launches(fn, runs=3):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    names = {}
-    for e in prof.key_averages():
-        if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
-                             "cudaMemcpy", "cudaMemset")):
-            names[e.key] = e.count / runs
+    names = _launch_calls(prof, runs)
     return sum(names.values()), names
+
+
+def _launch_calls(prof, runs):
+    """The launch API calls (kernels, graphs, copies, memsets) of a trace,
+    per call."""
+    return {e.key: e.count / runs for e in prof.key_averages()
+            if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                                 "cudaMemcpy", "cudaMemset"))}
 
 
 def phase_lm_full(arch):
@@ -2445,17 +2467,20 @@ def master_bound_err(card, cpu, lr, opt_cfg):
 
 
 def phase_train_reduced(arch):
-    """One reduced arch, f32, remat on: one make_train_step on the card
-    against the CPU, and remat on against off on the card."""
+    """One reduced arch, f32, remat on: one train step on the card (the
+    captured step's first call: its eager warm-up step) against
+    make_train_step on the CPU, and remat on against off on the card."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.engine import Mesh
     from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import OptConfig, adamw_init
 
     cfg = dataclasses.replace(reduced(get_config(arch)), remat=True)
     opt_cfg = OptConfig(**TRAIN_OPT)
     params, opt, step = train.build(cfg, Mesh(1, 1), opt_cfg,
                                     dtype=torch.float32, device="cuda")
+    cpu_step = make_train_step(cfg, opt_cfg, Mesh(1, 1))
     cpu = lm_on_cpu(params, cfg).requires_grad_(True)
     cpu_opt = adamw_init(cpu)
     batch = train_batch(cfg)
@@ -2466,7 +2491,7 @@ def phase_train_reduced(arch):
     remat_diff = max([abs(on_loss - off_loss)] + [
         float((a - b).abs().max()) for a, b in zip(on_g, off_g)])
     _, opt, m_card = step(params, opt, to_device(batch, "cuda"))
-    _, cpu_opt, m_cpu = step(cpu, cpu_opt, batch)
+    _, cpu_opt, m_cpu = cpu_step(cpu, cpu_opt, batch)
     loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(
         float(m_cpu["loss"]))
     gnorm_err = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) \
@@ -2478,6 +2503,62 @@ def phase_train_reduced(arch):
           f"{gnorm_err:.3e}, master over its bound by {over:.3e}")
     return {"arch": arch, "loss_rel_err": loss_err, "gnorm_rel_err": gnorm_err,
             "master_over_bound": over, "remat_on_vs_off_max_abs": remat_diff}
+
+
+def phase_train_graph(arch):
+    """One reduced arch, f32, remat on, under deterministic algorithms:
+    TRAIN_GRAPH_STEPS calls of ``train.build``'s captured step (one eager
+    warm-up step, the capture, then replays) against as many eager steps
+    from the same weights and batches.  Bit-equal (metrics and the whole
+    state) where no atomics sum; for the MoE, whose combine scatter-adds,
+    the loss within TRAIN_LOSS_TOL and ``grad_norm`` within
+    TRAIN_GNORM_TOL."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.engine import Mesh
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import CapturedTrainStep, make_train_step
+    from repro_torch.optim import OptConfig
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat=True)
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    replays = CapturedTrainStep.replays
+    diffs = {"loss": [], "grad_norm": []}
+    with deterministic():
+        p, o, cap = train.build(cfg, Mesh(1, 1), opt_cfg,
+                                dtype=torch.float32, device="cuda")
+        q, qo, _ = train.build(cfg, Mesh(1, 1), opt_cfg,
+                               dtype=torch.float32, device="cuda")
+        eager = make_train_step(cfg, opt_cfg, Mesh(1, 1))
+        check(isinstance(cap, CapturedTrainStep),
+              f"{arch}: train.build on the card gave {type(cap).__name__}, "
+              f"not a CapturedTrainStep")
+        for i in range(TRAIN_GRAPH_STEPS):
+            batch = to_device(train_batch(cfg, seed=10 + i), "cuda")
+            _, _, m = cap(p, o, batch)
+            _, qo, em = eager(q, qo, batch)
+            for k in diffs:
+                diffs[k].append(abs(float(m[k]) - float(em[k]))
+                                / abs(float(em[k])))
+        torch.cuda.synchronize()
+    replays = CapturedTrainStep.replays - replays
+    bit = same_state(p, o, q, qo) and not any(map(any, diffs.values()))
+    check(replays == TRAIN_GRAPH_STEPS - 1 and len(cap.capture_s) == 1,
+          f"{arch}: {replays} replays and {len(cap.capture_s)} captures in "
+          f"{TRAIN_GRAPH_STEPS} calls (expected {TRAIN_GRAPH_STEPS - 1}, 1)")
+    if cfg.family == "moe":
+        check(max(diffs["loss"]) <= TRAIN_LOSS_TOL
+              and max(diffs["grad_norm"]) <= TRAIN_GNORM_TOL,
+              f"{arch}: captured vs eager train step: {diffs}")
+    else:
+        check(bit, f"{arch}: the captured train step is not bit-equal to "
+              f"the eager one: {diffs}")
+    capture_s = cap.capture_s[0]
+    del p, o, q, qo, cap
+    torch.cuda.empty_cache()
+    return {"steps": TRAIN_GRAPH_STEPS, "replays": replays,
+            "capture_s": capture_s, "bit_equal": bit,
+            "loss_rel_diff": diffs["loss"],
+            "gnorm_rel_diff": diffs["grad_norm"]}
 
 
 def same_state(a_params, a_opt, b_params, b_opt):
@@ -2512,6 +2593,13 @@ def phase_train_entry_reduced():
               f"{clean.summary['restarts']} (expected 1, 0)")
         check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
               f"reduced entry point losses {losses}")
+        for r in (run, clean):
+            g, calls = r.summary["rank"]["graph"], len(r.summary["rank"][
+                "step_s"])
+            check(g["captures"] == 1 and g["replays"] == calls - 1,
+                  f"the reduced entry point captured {g['captures']} graphs "
+                  f"and replayed {g['replays']} in {calls} steps (expected "
+                  f"1 and {calls - 1})")
         tr, ctr = run.trainer, clean.trainer
         check(same_state(tr.params, tr.opt_state, ctr.params, ctr.opt_state),
               "the run with a fault and the clean run ended in different "
@@ -2522,7 +2610,7 @@ def phase_train_entry_reduced():
             {"params": fresh_p, "opt": fresh_o})
         check(same_state(fresh_p, fresh_o, tr.params, tr.opt_state),
               "the reduced run's checkpoint did not restore bit for bit")
-    return losses
+    return losses, run.summary["rank"]["graph"]
 
 
 def train_bound(params, cfg, B, S):
@@ -2670,22 +2758,28 @@ def phase_adamw(params, opt_state, cfg):
 
 
 def phase_train_full():
-    """TRAIN_FULL at full width through ``main`` at its defaults; the
-    final checkpoint restored; a card vs CPU check in f32 at B = 1; the
-    figures of one step."""
+    """TRAIN_FULL at full width through ``main`` at its defaults, which
+    runs one eager warm-up step, captures the step and replays the graph
+    in every later step; the final checkpoint restored; a card vs CPU
+    check in f32 at B = 1; the figures of one step, the graph's (a replay
+    through main's step) under ``graph`` and, timed in the same call, the
+    eager ``make_train_step``'s on the same state (the row's own step
+    figures and ``peak_bytes``, which phase 12's dry run models)."""
     from repro_torch.checkpoint import load_checkpoint, store
     from repro_torch.configs import get_config
     from repro_torch.engine import Mesh
     from repro_torch.kernels import adamw as A
     from repro_torch.launch import train
+    from repro_torch.launch.steps import CapturedTrainStep, make_train_step
     from repro_torch.optim import OptConfig
     from repro_torch.optim.adamw import global_norm
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
-    saves = []
+    saves, peaks = [], {}
     save_checkpoint = store.save_checkpoint
+    capture = CapturedTrainStep._capture
 
     def timed_save(*a, **kw):
         t0 = time.perf_counter()
@@ -2693,7 +2787,15 @@ def phase_train_full():
         saves.append(time.perf_counter() - t0)
         return path
 
+    def measured_capture(self, *a):
+        # the warm-up step's peak, then the capture's alone
+        peaks["warmup"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        capture(self, *a)
+        peaks["capture"] = torch.cuda.max_memory_allocated()
+
     store.save_checkpoint = timed_save
+    CapturedTrainStep._capture = measured_capture
     try:
         with tempfile.TemporaryDirectory() as d:
             # the main path of the fused optimizer: its count from 0
@@ -2701,7 +2803,8 @@ def phase_train_full():
             run = train.main(["--arch", TRAIN_FULL, "--steps",
                               str(TRAIN_FULL_STEPS), "--ckpt-dir", d])
             main_launches = A.adamw_fused.launches
-            peak = torch.cuda.max_memory_allocated()
+            peak = max(peaks["warmup"], torch.cuda.max_memory_allocated())
+            graph = run.summary["rank"]["graph"]
             cfg, tr, losses = run.cfg, run.trainer, run.summary["losses"]
             restarts = run.summary["restarts"]
             run_s = time.perf_counter() - t_start
@@ -2725,10 +2828,18 @@ def phase_train_full():
             del fresh_p, fresh_o
     finally:
         store.save_checkpoint = save_checkpoint
+        CapturedTrainStep._capture = capture
+    check(graph["captures"] == 1
+          and graph["replays"] == TRAIN_FULL_STEPS - 1,
+          f"{TRAIN_FULL}: main captured {graph['captures']} graphs and "
+          f"replayed {graph['replays']} in {TRAIN_FULL_STEPS} steps "
+          f"(expected 1 and {TRAIN_FULL_STEPS - 1})")
     t_figures = time.perf_counter()
     # the figures of one step, at main's batch (each call trains on)
     B, S = 8, 128
     batch = train.make_batches(cfg, B, S, "cuda")(0)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
 
     def step():
         return tr.train_step(tr.params, tr.opt_state, batch)
@@ -2738,19 +2849,38 @@ def phase_train_full():
           f"{TRAIN_FULL}: main launched the fused AdamW kernel "
           f"{main_launches} times ({TRAIN_FULL_STEPS} steps x {n_groups} "
           f"groups expected)")
-    before = A.adamw_fused.launches
+    before = (A.adamw_fused.launches, CapturedTrainStep.replays)
     step()
     torch.cuda.synchronize()
-    check(A.adamw_fused.launches - before == n_groups,
+    check(A.adamw_fused.launches - before[0] == n_groups
+          and CapturedTrainStep.replays - before[1] == 1,
           f"train_step launched the fused AdamW kernel "
-          f"{A.adamw_fused.launches - before} times ({n_groups} groups)")
-    dev_ms = device_ms(step, runs=TRAIN_PROFILED_STEPS, warm=1)
-    call_ms = median_ms(step, runs=TRAIN_TIMED_STEPS, warm=1)
-    device_top = {}
-    launches, host_top = lm_trace(step, device_top=device_top)
+          f"{A.adamw_fused.launches - before[0]} times ({n_groups} groups) "
+          f"in {CapturedTrainStep.replays - before[1]} replays (1)")
+    g_dev_ms = device_ms(step, runs=TRAIN_GRAPH_PROFILED_STEPS, warm=1)
+    g_call_ms = median_ms(step, runs=TRAIN_TIMED_STEPS, warm=1)
+    g_host = {}
+    g_launches, g_host_top = lm_trace(step, host_launch=g_host)
+    # the eager step on the same state, as main ran it before the graph
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=10,
+                        total_steps=TRAIN_FULL_STEPS)
+    eager = train._timed(make_train_step(cfg, opt_cfg, Mesh(1, 1)), [])
+
+    def eager_step():
+        return eager(tr.params, tr.opt_state, batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    eager_step()
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    dev_ms = device_ms(eager_step, runs=TRAIN_PROFILED_STEPS, warm=1)
+    call_ms = median_ms(eager_step, runs=TRAIN_TIMED_STEPS, warm=1)
+    device_top, host = {}, {}
+    launches, host_top = lm_trace(eager_step, device_top=device_top,
+                                  host_launch=host)
     b_ms, b_by, n_bytes, flops = train_bound(tr.params, cfg, B, S)
     n = sum(p.numel() for p in tr.params.parameters())
-    del step, batch
+    del step, eager_step, eager, batch
     torch.cuda.empty_cache()
     opt_row = phase_adamw(tr.params, tr.opt_state, cfg)
     opt_row["main_launches"] = main_launches
@@ -2777,10 +2907,25 @@ def phase_train_full():
           f"{TRAIN_FULL} f32 card vs CPU: loss {loss_err:.3e}, grad_norm "
           f"{gnorm_err:.3e}")
     return {"arch": TRAIN_FULL, "params": n, "dtype": "bfloat16",
-            "batch": B, "seq": S, "remat": cfg.remat, "peak_bytes": peak,
+            "batch": B, "seq": S, "remat": cfg.remat,
+            "graph": {"capture_s": graph["capture_s"],
+                      "captures": graph["captures"],
+                      "replays": graph["replays"],
+                      "step_device_ms": g_dev_ms, "step_call_ms": g_call_ms,
+                      "tok_per_s": B * S / g_call_ms * 1e3,
+                      "launches_per_step": g_launches,
+                      "host_launches_per_step": sum(g_host.values()),
+                      "host_launch_calls": g_host,
+                      "host_top_ms_per_step": g_host_top,
+                      "peak_bytes": peaks["capture"],
+                      "main_peak_bytes": peak,
+                      "reserved_bytes": reserved},
+            "peak_bytes": eager_peak,
             "step_device_ms": dev_ms, "step_call_ms": call_ms,
             "tok_per_s": B * S / call_ms * 1e3,
-            "launches_per_step": launches, "host_top_ms_per_step": host_top,
+            "launches_per_step": launches,
+            "host_launches_per_step": sum(host.values()),
+            "host_top_ms_per_step": host_top,
             "device_top_ms_per_step": device_top, "adamw": opt_row,
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": n_bytes,
             "bound_flops": flops, "ckpt_bytes": ckpt_bytes,
@@ -2804,20 +2949,24 @@ def phase_train():
     before = kernel_counts()
     for arch in TRAIN_ARCHS:
         row = phase_train_reduced(arch)
+        row["graph"] = phase_train_graph(arch)
         print("train reduced: " + json.dumps(row))
     t1 = time.perf_counter()
-    losses = phase_train_entry_reduced()
+    losses, graph = phase_train_entry_reduced()
     t2 = time.perf_counter()
     print(f"train entry point reduced: 1 restart, loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}, fault run bit-equal to the clean run, "
-          f"checkpoint restored bit for bit ({t1 - t0:.1f} s for the "
-          f"reduced archs, {t2 - t1:.1f} s for the entry point)")
+          f"{losses[-1]:.4f}, {graph['replays']} graph replays after "
+          f"{graph['captures']} capture ({graph['capture_s'][0]:.2f} s), "
+          f"fault run bit-equal to the clean run, checkpoint restored bit "
+          f"for bit ({t1 - t0:.1f} s for the reduced archs, {t2 - t1:.1f} s "
+          f"for the entry point)")
     row = phase_train_full()
     print("train: " + json.dumps(row))
     check(kernel_counts() == before,
           f"a BSR or MoE kernel launched during training: "
           f"{before} -> {kernel_counts()}")
-    print(f"phase 10 took {time.perf_counter() - t0:.1f} s; the fused AdamW "
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s; main replayed "
+          f"{row['graph']['replays']} graphs; the fused AdamW "
           f"kernel ran every update ({row['adamw']['main_launches']} "
           f"launches in main); no other hand-written kernel launched")
     return row

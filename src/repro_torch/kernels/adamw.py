@@ -16,11 +16,22 @@ follows, so the two agree bit for bit.  A CUDA tensor launches the kernel on
 tensor runs the plain version; a ``meta`` tensor (the dry run's stand-in for
 the card) gets the kernel's outputs and nothing else, as the kernel
 allocates no temporaries.  ``adamw_fused.launches`` counts kernel launches.
+
+Inside a CUDA graph capture (``capturing``) a launch's leaf table is left
+in a ``CapturedLaunches`` that lives as long as the graph, and is filled
+once, after the capture (``CapturedLaunches.upload``): its pointers are
+fixed for the graph's life.  Its device rows are allocated before the
+capture, outside the graph's pool: a block of that pool is shared over
+the step with the graph's temporaries, which each replay writes before
+the kernel would read the table.  The capture counts no launch, each
+replay counts its own (``CapturedLaunches.replayed``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import contextlib
+import threading
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -131,18 +142,84 @@ def leaf_table(grads, master, mu, nu, outs) -> tuple:
     return table, chunk0
 
 
+class CapturedLaunches:
+    """The fused launches a CUDA graph captured: each one's host leaf table
+    and the device rows its kernel node reads, kept for the graph's life.
+    ``rows`` (at least the leaves of every launch together) are allocated
+    on ``device`` here, before the capture."""
+
+    def __init__(self, rows: int, device):
+        self.buffer = torch.empty((rows, _WORDS), dtype=torch.int64,
+                                  device=device)
+        self.used = 0
+        self.tables: List[tuple] = []
+
+    def take(self, table: np.ndarray) -> torch.Tensor:
+        """The device rows for a captured launch's ``table``."""
+        n = table.shape[0]
+        if self.used + n > self.buffer.shape[0]:
+            raise RuntimeError(f"adamw_fused: a captured launch needs "
+                               f"{self.used + n} table rows, "
+                               f"{self.buffer.shape[0]} were allocated")
+        dev = self.buffer[self.used:self.used + n]
+        self.used += n
+        self.tables.append((table, dev))
+        return dev
+
+    def upload(self) -> None:
+        """Fill the device tables (after the capture, before the first
+        replay)."""
+        for host, dev in self.tables:
+            dev.copy_(torch.from_numpy(host))
+
+    def replayed(self) -> None:
+        """Count one replay's launches."""
+        for _ in self.tables:
+            count_launch(adamw_fused)
+
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def capturing(into: CapturedLaunches):
+    """Launches of this thread in the block are captured into a graph:
+    their tables go to ``into``."""
+    prev = getattr(_local, "captured", None)
+    _local.captured = into
+    try:
+        yield into
+    finally:
+        _local.captured = prev
+
+
+def _captured() -> Optional[CapturedLaunches]:
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    into = getattr(_local, "captured", None)
+    if into is None:
+        raise RuntimeError("adamw_fused: a CUDA graph captures this launch "
+                           "outside adamw.capturing(...), so nothing would "
+                           "keep its leaf table for the replays")
+    return into
+
+
 def launch(grads, master, mu, nu, outs, scale, lr, bc1, bc2, b1, b2, eps,
            weight_decay) -> List[torch.Tensor]:
     """Launch the kernel on checked CUDA tensors (``adamw_fused`` checks
     them): the leaf table goes to the device through pinned memory, without
-    a host sync."""
+    a host sync (under a capture, into a ``CapturedLaunches``)."""
     lib = _build.load()
     table, n_chunks = leaf_table(grads, master, mu, nu, outs)
     if n_chunks == 0:
         return outs
     device = master[0].device
-    dev_table = torch.from_numpy(table).pin_memory().to(device,
-                                                        non_blocking=True)
+    captured = _captured()
+    if captured is None:
+        dev_table = torch.from_numpy(table).pin_memory().to(
+            device, non_blocking=True)
+    else:
+        dev_table = captured.take(table)
     rc = lib.adamw_launch(
         dev_table.data_ptr(), table.shape[0], n_chunks, scale.data_ptr(),
         lr.data_ptr(), bc1.data_ptr(), bc2.data_ptr(), b1, 1 - b1, b2,
@@ -150,7 +227,8 @@ def launch(grads, master, mu, nu, outs, scale, lr, bc1, bc2, b1, b2, eps,
     if rc:
         raise RuntimeError(f"adamw_fused: kernel launch failed, CUDA error "
                            f"{rc}")
-    count_launch(adamw_fused)
+    if captured is None:
+        count_launch(adamw_fused)
     return outs
 
 

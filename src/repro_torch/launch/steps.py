@@ -3,7 +3,10 @@
 ``CapturedServeStep`` is the port's counterpart of ``jax.jit`` around
 ``make_serve_step`` on one card: the decode step, with its caches written
 in place (``lm.decode_step_``), captured once per shape in a CUDA graph and
-replayed once per generated token.
+replayed once per generated token.  ``CapturedTrainStep`` is the same for
+``make_train_step``: the whole one-device train step (forward, backward,
+clip, schedule and the fused AdamW pass, every state tensor written in
+place) captured once per batch signature and replayed once per step.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..kernels import adamw as fused_adamw
 from ..models import encdec, lm, tripcount
 from ..models.config import ModelConfig
 from ..models.sharding import reduce_
@@ -262,3 +266,139 @@ class CapturedServeStep:
             if keep_logits:
                 self.step_logits.append(g.logits.clone())
         return out
+
+
+def _state_ptrs(params, opt_state) -> List[int]:
+    """The ``data_ptr`` of every parameter and optimizer-state tensor, in a
+    fixed order."""
+    ptrs = [p.data_ptr() for p in params.parameters()]
+    for key in ("master", "mu", "nu"):
+        ptrs += [opt_state[key][n].data_ptr() for n in sorted(opt_state[key])]
+    return ptrs + [opt_state["step"].data_ptr()]
+
+
+class _TrainGraph:
+    """One captured train step: its static batch buffers, the metrics its
+    capture left in the graph's pool, the fused AdamW launches it holds and
+    the addresses of the state it reads and writes."""
+
+    def __init__(self, batch: Dict[str, torch.Tensor]):
+        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.metrics: Dict[str, torch.Tensor] = {}
+        self.adamw = None
+        self.graph = None
+        self.state_ptrs: List[int] = []
+
+    def load(self, batch: Dict[str, torch.Tensor]) -> None:
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+
+
+class CapturedTrainStep:
+    """The train step of ``make_train_step`` on one CUDA device as CUDA
+    graphs: the counterpart of the reference's ``jax.jit(make_train_step(
+    cfg, opt_cfg, mesh), donate_argnums=(0, 1))``.
+
+    A graph holds the whole step on its static batch buffers: the loss
+    forward (remat units under ``torch.utils.checkpoint``), the gradients
+    with the remat recompute, the microbatches, the clip, the schedule,
+    one fused AdamW launch per group, the new parameters written into the
+    model and the step counter incremented, all in place; ``loss``,
+    ``grad_norm`` and ``lr`` stay in the graph's pool.  One graph per batch
+    signature (each key's shape and dtype), as ``jit`` retraces per shape.
+    The first call with a new signature runs one real step eagerly on a
+    side stream as the warm-up (kernel selection, the cuBLAS workspaces
+    and the autograd threads settle in it; a step of the run, whose result
+    is returned), then captures, which runs nothing; ``capture_s`` records
+    each such call's seconds.  Later calls copy the batch into the buffers, replay,
+    and return ``(params, opt_state, metrics)``: the very objects given,
+    and the metrics cloned out of the graph.
+
+    The graph reads and writes the state it was captured on, so every call
+    must hand it the same tensors (a checkpoint restores into them in
+    place); a call with others raises.  A capture that fails raises, and so
+    does every later call: there is no eager retry.  ``replays`` and
+    ``captures`` count in the whole process (``reset_counts`` zeroes
+    them)."""
+
+    replays = 0
+    captures = 0
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: OptConfig, mesh=None):
+        mesh = as_mesh(mesh)
+        if mesh is not None and mesh.size > 1:
+            raise ValueError(f"CapturedTrainStep runs on one device; the "
+                             f"step on {mesh} stays eager")
+        self.step = make_train_step(cfg, opt_cfg, mesh)
+        self.graphs: Dict[Tuple, _TrainGraph] = {}
+        self.capture_s: List[float] = []
+        self.failed = None
+
+    @classmethod
+    def reset_counts(cls) -> None:
+        cls.replays = 0
+        cls.captures = 0
+
+    def buffers(self, batch: Dict[str, torch.Tensor]) -> _TrainGraph:
+        """The static buffers of ``batch``'s signature, holding it (no
+        graph yet)."""
+        g = _TrainGraph(batch)
+        g.load(batch)
+        return g
+
+    def body(self, params, opt_state, g: _TrainGraph):
+        """What the graph captures: the train step on ``g``'s batch
+        buffers."""
+        return self.step(params, opt_state, g.batch)
+
+    def _capture(self, params, opt_state, g: _TrainGraph) -> None:
+        torch.cuda.empty_cache()
+        # a table row per parameter covers every group's launch
+        plist = list(params.parameters())
+        g.adamw = fused_adamw.CapturedLaunches(len(plist), plist[0].device)
+        g.graph = torch.cuda.CUDAGraph()
+        with fused_adamw.capturing(g.adamw), torch.cuda.graph(g.graph):
+            _, _, g.metrics = self.body(params, opt_state, g)
+        g.adamw.upload()
+        torch.cuda.synchronize()
+
+    def _first(self, params, opt_state, batch):
+        t0 = time.perf_counter()
+        g = self.buffers(batch)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _, _, metrics = self.body(params, opt_state, g)
+        torch.cuda.current_stream().wait_stream(side)
+        metrics = {k: v.clone() for k, v in metrics.items()}
+        try:
+            self._capture(params, opt_state, g)
+        except Exception as e:
+            self.failed = e
+            raise
+        g.state_ptrs = _state_ptrs(params, opt_state)
+        self.capture_s.append(time.perf_counter() - t0)
+        CapturedTrainStep.captures += 1
+        return g, metrics
+
+    def __call__(self, params, opt_state, batch: Dict[str, torch.Tensor]):
+        if self.failed is not None:
+            raise RuntimeError("the train step's CUDA graph capture failed "
+                               "earlier") from self.failed
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(batch.items()))
+        g = self.graphs.get(key)
+        if g is None:
+            g, metrics = self._first(params, opt_state, batch)
+            self.graphs[key] = g
+            return params, opt_state, metrics
+        if _state_ptrs(params, opt_state) != g.state_ptrs:
+            raise RuntimeError("CapturedTrainStep: the parameters or "
+                               "optimizer state are not the tensors the "
+                               "graph was captured on (restore into them in "
+                               "place)")
+        g.load(batch)
+        g.graph.replay()
+        g.adamw.replayed()
+        CapturedTrainStep.replays += 1
+        return params, opt_state, {k: v.clone() for k, v in g.metrics.items()}

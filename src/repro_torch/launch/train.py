@@ -49,7 +49,7 @@ from ..runtime import FaultInjector, ResilientTrainer, StragglerMonitor
 from ..runtime.elastic import shardings_for
 from . import partition, specs
 from .mesh import (as_mesh, in_world, join_world, make_test_mesh, run_world)
-from .steps import make_train_step
+from .steps import CapturedTrainStep, make_train_step
 
 
 @dataclasses.dataclass
@@ -59,7 +59,8 @@ class TrainRun:
     ranks), the trainer's summary and the loop's wall time, and the
     backend of a run on several ranks.  ``summary["rank"]`` holds this
     rank's figures (peak memory, each step's and each save's seconds, the
-    collectives' calls and bytes, the fused AdamW kernel's launches); a
+    collectives' calls and bytes, the fused AdamW kernel's launches, and on
+    one card the CUDA graphs' captures, replays and capture seconds); a
     spawned run's ``summary["ranks"]`` every rank's."""
 
     cfg: ModelConfig
@@ -81,7 +82,10 @@ def train_device(name: str) -> torch.device:
 def build(cfg: ModelConfig, mesh, opt_cfg: OptConfig, seed: int = 0,
           dtype=torch.bfloat16, device="cuda"):
     """(model, optimizer state, train step): random weights from ``seed``
-    drawn on ``device``, every parameter trainable.
+    drawn on ``device``, every parameter trainable.  On one CUDA device the
+    step is a ``CapturedTrainStep`` (one CUDA graph per batch signature,
+    as the reference jits it); on the CPU it is ``make_train_step``'s
+    eager step.
 
     On a bound mesh of several ranks every rank draws the full weights and
     keeps its slices (``partition.params_specs``), the optimizer state
@@ -93,7 +97,10 @@ def build(cfg: ModelConfig, mesh, opt_cfg: OptConfig, seed: int = 0,
     params = mod.init(gen, cfg, dtype=dtype)
     if mesh is None or mesh.size == 1:
         params.requires_grad_(True)
-        return params, adamw_init(params), make_train_step(cfg, opt_cfg, mesh)
+        step = CapturedTrainStep(cfg, opt_cfg, mesh) \
+            if next(params.parameters()).device.type == "cuda" \
+            else make_train_step(cfg, opt_cfg, mesh)
+        return params, adamw_init(params), step
     axes_from_mesh(mesh)
     p_specs = partition.params_specs(mesh, params)
     partition.shard_module(params, p_specs, mesh).requires_grad_(True)
@@ -200,6 +207,7 @@ def train(args: argparse.Namespace, device: torch.device,
                              if args.inject_fault_at is not None else [])
     STATS.reset()
     launches = adamw_fused.launches
+    graphs = (CapturedTrainStep.captures, CapturedTrainStep.replays)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     trainer = ResilientTrainer(
@@ -213,6 +221,11 @@ def train(args: argparse.Namespace, device: torch.device,
     figures["adamw_launches"] = adamw_fused.launches - launches
     figures["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                              if device.type == "cuda" else None)
+    if isinstance(step_fn, CapturedTrainStep):
+        figures["graph"] = {
+            "captures": CapturedTrainStep.captures - graphs[0],
+            "replays": CapturedTrainStep.replays - graphs[1],
+            "capture_s": list(step_fn.capture_s)}
     summary["rank"] = figures
     ls = summary["losses"]
     if rank0:
@@ -220,6 +233,11 @@ def train(args: argparse.Namespace, device: torch.device,
               f"loss {ls[0]:.4f} -> {ls[-1]:.4f} "
               f"restarts={summary['restarts']} "
               f"stragglers={summary['straggler_events']}")
+        if "graph" in figures:
+            g = figures["graph"]
+            print(f"cuda graph: captures={g['captures']} "
+                  f"replays={g['replays']} capture="
+                  f"{sum(g['capture_s']):.1f}s")
         sys.stdout.flush()
     return TrainRun(cfg, trainer, summary, dt, backend)
 

@@ -212,9 +212,13 @@ def embed_tokens(params, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
 
 def _maybe_remat(fn: Callable, cfg: ModelConfig, train: bool) -> Callable:
     """``fn`` recomputed in the backward pass when training with remat (the
-    reference's ``jax.checkpoint``)."""
+    reference's ``jax.checkpoint``).  The models draw no random numbers
+    outside ``init``, so the recompute has no RNG state to restore
+    (``preserve_rng_state=False``), and a CUDA graph of the train step
+    reads none."""
     if train and cfg.remat:
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
     return fn
 
 

@@ -15,7 +15,7 @@ to each parameter's dtype.  It updates groups of leaves (at most
 card one launch of the fused kernel per group (the counterpart of XLA's
 fusion of this update under ``jit``), on the CPU its plain version, the
 ``torch._foreach_*`` sequence, bit for bit the same; ``master``, ``mu`` and
-``nu`` are updated in place.
+``nu`` are updated in place, and so is the step counter.
 
 On a mesh (``mesh`` and the optimizer state's specs, ``launch.partition.
 opt_specs``) the state holds this rank's ZeRO slices: each data rank
@@ -147,8 +147,9 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: Dict[str, Any],
 
     Returns ``(new_params, new_state, {"grad_norm", "lr"})``: the new
     parameters as fresh tensors of each parameter's dtype, and the state
-    whose ``master``, ``mu`` and ``nu`` are the given ones, updated in
-    place, with ``step + 1``.  With ``mesh`` and ``specs`` (the master's
+    whose ``master``, ``mu``, ``nu`` and ``step`` are the given tensors,
+    updated in place (``step`` one higher), so that a CUDA graph of the
+    update reads and writes the same state at every replay.  With ``mesh`` and ``specs`` (the master's
     specs), ``grads`` and the state hold this rank's ZeRO slices, and the
     new parameters come back whole over the data axes, for every name of
     ``params``."""
@@ -171,6 +172,7 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: Dict[str, Any],
         new_params.update(zip(gn, new))
     if mesh is not None and mesh.size > 1:
         new_params = gather_named(new_params, specs, mesh, dp_axes(mesh))
+    step.add_(1)
     new_state = {"master": opt_state["master"], "mu": opt_state["mu"],
-                 "nu": opt_state["nu"], "step": step + 1}
+                 "nu": opt_state["nu"], "step": step}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
