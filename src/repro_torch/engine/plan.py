@@ -20,6 +20,7 @@ from ..core.blocksparse import BlockFFNN, BSRLayer
 from ..core.bounds import Bounds
 from ..core.iosim import IOStats
 from ..kernels.ops import CompiledSchedule, FlatSchedule
+from ..obs import trace as _trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,9 +301,19 @@ class ExecutionPlan:
 
     def __call__(self, x) -> torch.Tensor:
         """Run inference.  ``x`` is ``[n_in]`` or batched ``[B, n_in]`` (a
-        tensor or array); the result is a tensor on the plan's device."""
-        x, single = self._input(x)
-        y = self._forward(x)
+        tensor or array); the result is a tensor on the plan's device.
+
+        While tracing is active: ``plan.input`` (the copy to the device, one
+        host synchronisation counted for a host input copied to the card)
+        and ``plan.launch`` (scratch allocation and the launches)."""
+        with _trace.span("plan.input"):
+            to_card = self.device.type == "cuda" and not (
+                isinstance(x, torch.Tensor) and x.is_cuda)
+            x, single = self._input(x)
+            if to_card:
+                _trace.count("syncs")
+        with _trace.span("plan.launch"):
+            y = self._forward(x)
         self.calls += 1
         return y[0] if single else y
 

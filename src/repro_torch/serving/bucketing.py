@@ -29,6 +29,7 @@ import torch
 
 from ..core.blocksparse import BlockFFNN, BSRLayer
 from ..engine import Engine, ExecutionPlan, Mesh, ShardedExecutionPlan
+from ..obs import trace as _trace
 from ..obs.trace import NULL_TRACER
 
 AnyPlan = Union[ExecutionPlan, ShardedExecutionPlan]
@@ -199,23 +200,33 @@ class BucketedPlanSet:
 
     def __call__(self, x) -> np.ndarray:
         """Run a batch of any size.  ``x`` is ``[n, n_in]``; batches larger
-        than the top bucket run in top-bucket chunks.  Returns host numpy."""
-        x = torch.as_tensor(x).to(self.base.dtype)
-        if x.ndim != 2 or x.shape[1] != self.n_in:
+        than the top bucket run in top-bucket chunks.  Returns host numpy.
+
+        While tracing is active: ``bucket.pad`` (conversion, cast, host-side
+        pad), the plan's own spans, ``bucket.fetch`` (the copy back and the
+        wait for the device, one synchronisation on the card)."""
+        shape = tuple(np.shape(x))
+        if len(shape) != 2 or shape[1] != self.n_in:
             raise ValueError(
-                f"expected input [n, {self.n_in}], got {tuple(x.shape)}")
-        n = x.shape[0]
+                f"expected input [n, {self.n_in}], got {shape}")
+        n = shape[0]
         if n > self.max_batch:
             parts = [self(x[i:i + self.max_batch])
                      for i in range(0, n, self.max_batch)]
             return np.concatenate(parts)
         b = self.bucket_for(n)
-        if n < b:
-            x = torch.cat([x, x.new_zeros((b - n, x.shape[1]))])
+        with _trace.span("bucket.pad"):
+            x = torch.as_tensor(x).to(self.base.dtype)
+            if n < b:
+                x = torch.cat([x, x.new_zeros((b - n, x.shape[1]))])
         with self._mu:
             self.bucket_calls[b] += 1
         y = self.plans[b](x)
-        return y[:n].cpu().numpy()
+        with _trace.span("bucket.fetch"):
+            out = y[:n].cpu().numpy()
+            if y.is_cuda:
+                _trace.count("syncs")
+        return out
 
     def describe(self) -> str:
         src = "plan-store hit" if self.cache_hit else "cold compile"

@@ -71,8 +71,9 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..obs import trace as _trace
 from ..obs.telemetry import IOTelemetry, plan_io_attrs
-from ..obs.trace import NULL_TRACER, Tracer
+from ..obs.trace import NULL_SPAN, NULL_TRACER, Tracer
 from .bucketing import BucketedPlanSet, DispatchQueues, FormedBatch
 from .metrics import ServingMetrics
 from .resilience import (
@@ -101,6 +102,7 @@ class Request:
     x: np.ndarray                 # [n_in] feature vector
     t_submit: float
     deadline: Optional[float]     # absolute clock time, or None
+    depth: int = 0                # queue depth it was admitted behind
 
 
 class _Slot:
@@ -359,9 +361,12 @@ class SparseServer:
       name: model name stamped on every span and metric this server emits
         (``ModelRouter`` sets it to the routing key).
       tracer: a :class:`repro_torch.obs.Tracer` recording the request lifecycle
-        (submit → queue → execute → done), swaps, breaker transitions, and
-        watchdog restarts.  Default is the shared disabled ``NULL_TRACER``
-        — one ``enabled`` check per site, nothing recorded.
+        (submit → queue → execute → done, one record per batch), the batch
+        path's phases, swaps, breaker transitions, and watchdog restarts;
+        give it the server's clock.  Default is the shared disabled
+        ``NULL_TRACER`` — one check per site, nothing recorded unless a
+        ``torch.profiler`` profile collects (then the spans go to the
+        profiler and ``obs.trace.totals``).
       measure_dynamic_every: sample measured dynamic I/O
         (``ExecutionPlan.measure_dynamic``) every N successful batches and
         fold it into ``self.io`` (requires a gated fused plan; silently
@@ -552,15 +557,14 @@ class SparseServer:
             rid = next(self._rid)
             deadline = now + (deadline_ms / 1e3 if deadline_ms is not None
                               else self.slo_s)
-            self._queue.append(Request(rid=rid, x=x,
-                                       t_submit=now, deadline=deadline))
+            self._queue.append(Request(rid=rid, x=x, t_submit=now,
+                                       deadline=deadline, depth=depth))
             # the result slot exists from admission, so wait(rid) can block
             # on it before the request is ever picked into a batch
             self._results[rid] = _Slot()
+            # an admitted request's request.submit is rebuilt at export
+            # from its batch's record (t_submit, depth): nothing recorded here
             self.metrics.record_submit(now, depth, admitted=True)
-            if self.tracer.enabled:
-                self.tracer.event("request.submit", model=self.name,
-                                  rid=rid, depth=depth, admitted=True)
             # wake on any transition that can change the scheduler's
             # decision or its sleep bound: queue newly non-empty, reached a
             # full batch, or crossed a bucket boundary (the deadline clause
@@ -1043,45 +1047,72 @@ class SparseServer:
 
     def _serve_loop(self) -> None:
         me = threading.current_thread()
-        while True:
-            if self._thread is not me:
-                return  # superseded by a watchdog restart — retire quietly
-            self._heartbeat.beat()
-            # chaos site: an injected raise here kills this thread (the
-            # watchdog-restart path); fired OUTSIDE the lock so an injected
-            # hang wedges only the scheduler, never submitters
-            self._fire("server.scheduler")
-            with self._cv:
-                while not self._stop.is_set() and not self._queue:
-                    if self._thread is not me:
-                        return
-                    self._heartbeat.beat()
-                    self._cv.wait(timeout=_IDLE_WAIT_S)
-                if self._stop.is_set() and \
-                        (not self._drain_on_stop or not self._queue):
-                    return
-                timeout = self._seconds_to_fire_locked(self.clock())
-            # execution happens OUTSIDE the lock: submits stay unblocked.
-            # Pipeline mode only FORMS here — execution is the pool's job
-            pipelined = self._pipeline_active()
-            if pipelined:
-                served = self._pump(flush=self._stop.is_set())
-            else:
-                served = self.step(flush=self._stop.is_set())
-            if served == 0:
+        # scheduler.idle: from this thread's last batch done to its next
+        # batch formed, one span per batch (inline execution only)
+        idle = NULL_SPAN
+        try:
+            while True:
+                if self._thread is not me:
+                    return  # superseded by a watchdog restart — retire quietly
+                self._heartbeat.beat()
+                # chaos site: an injected raise here kills this thread (the
+                # watchdog-restart path); fired OUTSIDE the lock so an
+                # injected hang wedges only the scheduler, never submitters
+                self._fire("server.scheduler")
                 with self._cv:
-                    # re-check under the cv before sleeping: a notify that
-                    # landed between step() and here (e.g. the queue filling
-                    # to a full batch) would otherwise be lost and the ready
-                    # batch would sleep out the stale timeout.  In pipeline
-                    # mode a zero pump may also mean lane-full backpressure
-                    # — then the wait is correct regardless of the policy
-                    # (a batch completion notifies this cv), and it stays
-                    # bounded by `timeout` <= the idle tick
-                    if pipelined or (not self._stop.is_set()
-                                     and not self._should_fire_locked()):
-                        if not (self._stop.is_set() and not self._queue):
-                            self._cv.wait(timeout=timeout)
+                    while not self._stop.is_set() and not self._queue:
+                        if self._thread is not me:
+                            return
+                        self._heartbeat.beat()
+                        self._cv.wait(timeout=_IDLE_WAIT_S)
+                    if self._stop.is_set() and \
+                            (not self._drain_on_stop or not self._queue):
+                        return
+                    timeout = self._seconds_to_fire_locked(self.clock())
+                # execution happens OUTSIDE the lock: submits stay unblocked.
+                # Pipeline mode only FORMS here — execution is the pool's job
+                pipelined = self._pipeline_active()
+                if pipelined:
+                    served = self._pump(flush=self._stop.is_set())
+                else:
+                    served = 0
+                    batch = self._form_batch(flush=self._stop.is_set())
+                    if batch is not None:
+                        if idle.recording:
+                            # rows queued when the batch formed, its own
+                            # included
+                            idle["depth"] = len(batch.reqs) + len(self._queue)
+                            idle.__exit__(None, None, None)
+                            idle = NULL_SPAN
+                        served = self._run_batch(batch)
+                        idle = self._idle_span()
+                if served == 0:
+                    with self._cv:
+                        # re-check under the cv before sleeping: a notify
+                        # that landed between the step and here (e.g. the
+                        # queue filling to a full batch) would otherwise be
+                        # lost and the ready batch would sleep out the stale
+                        # timeout.  In pipeline mode a zero pump may also
+                        # mean lane-full backpressure — then the wait is
+                        # correct regardless of the policy (a batch
+                        # completion notifies this cv), and it stays bounded
+                        # by `timeout` <= the idle tick
+                        if pipelined or (not self._stop.is_set()
+                                         and not self._should_fire_locked()):
+                            if not (self._stop.is_set() and not self._queue):
+                                self._cv.wait(timeout=timeout)
+        finally:
+            idle.__exit__(None, None, None)
+
+    def _idle_span(self):
+        """An entered ``scheduler.idle`` span while tracing is active, else
+        the no-op."""
+        tr = self.tracer
+        if not (tr.enabled or _trace.profiling()):
+            return NULL_SPAN
+        sp = tr.span("scheduler.idle", model=self.name)
+        sp.__enter__()
+        return sp
 
     def shutdown(self, drain: bool = True,
                  timeout: Optional[float] = None,
@@ -1282,28 +1313,16 @@ class SparseServer:
             check_finite(y)
         return y
 
-    def _trace_batch(self, reqs: List[Request], plans, bucket: int,
-                     t0: float, t1: float, attempt: int,
-                     error: Optional[BaseException] = None,
-                     worker: Optional[int] = None) -> None:
-        """Record the batch's execute span, each request's retroactive queue
-        span, and per-request done events (tracer enabled — caller checked)."""
-        tr = self.tracer
-        attrs = {"model": self.name, "bucket": bucket, "n": len(reqs),
-                 "attempt": attempt + 1,
-                 "degraded": bool(getattr(plans, "safe_mode", False))}
-        if worker is not None:
-            attrs["worker"] = worker
-        attrs.update(plan_io_attrs(plans.plans.get(bucket, plans.base)))
-        if error is not None:
-            attrs["error"] = type(error).__name__
-        tr.span_at("batch.execute", t0, t1, **attrs)
-        for r in reqs:
-            tr.span_at("request.queue", r.t_submit, t0, model=self.name,
-                       rid=r.rid, bucket=bucket)
-            tr.event("request.done", model=self.name, rid=r.rid,
-                     ok=error is None,
-                     miss=bool(r.deadline is not None and t1 > r.deadline))
+    def _trace_requests(self, sp, reqs: List[Request], bucket: int,
+                        t0: float, t1: float, ok: bool) -> None:
+        """Attach the batch's requests to its ``batch.execute`` record
+        (tracer enabled — caller checked): expanded at export into each
+        request's ``request.submit``, ``request.queue`` (ending at ``t0``)
+        and ``request.done`` (at ``t1``)."""
+        sp.requests(self.name, bucket, t0, t1, ok, (
+            tuple(r.rid for r in reqs), tuple(r.t_submit for r in reqs),
+            tuple(r.depth for r in reqs),
+            tuple(r.deadline is not None and t1 > r.deadline for r in reqs)))
 
     def _run_batch(self, batch: FormedBatch,
                    worker: Optional[int] = None) -> int:
@@ -1311,11 +1330,33 @@ class SparseServer:
         None) or on an executor-pool worker.  Runs against the batch's own
         plan snapshot; breaker feedback is fenced by the batch's plan
         generation, so a batch that overlapped a swap/degrade/reinstall
-        can neither trip nor reset state that belongs to newer plans."""
+        can neither trip nor reset state that belongs to newer plans.
+
+        While tracing is active the whole of it is one ``batch.execute``
+        span, with ``batch.stack``, the bucket set's and the plan's spans,
+        and ``batch.finish`` inside it."""
         reqs, plans = batch.reqs, batch.plans
         n = len(reqs)
         bucket = plans.bucket_for(n)
-        x = np.stack([r.x for r in reqs])
+        tr = self.tracer
+        sp = NULL_SPAN
+        if tr.enabled or _trace.profiling():
+            sp = tr.span("batch.execute", model=self.name, bucket=bucket,
+                         n=n, degraded=bool(getattr(plans, "safe_mode",
+                                                    False)), syncs=0)
+            if worker is not None:
+                sp["worker"] = worker
+        with sp:
+            return self._execute(batch, sp, worker)
+
+    def _execute(self, batch: FormedBatch, sp, worker: Optional[int]) -> int:
+        """The body of ``_run_batch``, inside its ``batch.execute`` span
+        ``sp`` (the no-op while tracing is inactive)."""
+        reqs, plans = batch.reqs, batch.plans
+        n = len(reqs)
+        bucket = plans.bucket_for(n)
+        with _trace.span("batch.stack"):
+            x = np.stack([r.x for r in reqs])
         policy = self.retry
         tr = self.tracer
         attempt = 0
@@ -1345,10 +1386,13 @@ class SparseServer:
                 # retries exhausted: complete the batch's slots with None
                 # so waiters unblock, count the failure, feed the breaker,
                 # move on
-                if tr.enabled:
-                    self._trace_batch(reqs, plans, bucket, t0, t1,
-                                      attempt, error=e, worker=worker)
-                with self._cv:
+                if sp.recording:
+                    sp["attempt"] = attempt + 1
+                    sp["error"] = type(e).__name__
+                    if tr.enabled:
+                        self._trace_requests(sp, reqs, bucket, t0, t1,
+                                             ok=False)
+                with _trace.span("batch.finish"), self._cv:
                     self.metrics.record_attempt_failure(timed_out=timed_out,
                                                         nan_guard=nan_guard)
                     self._finish_slots(reqs, None, t1)
@@ -1357,53 +1401,66 @@ class SparseServer:
                         self._breaker_failure_locked(t1)
                 return n
         t1 = self.clock()
-        exec_s = t1 - t0
-        # the pipeline wait split: form-wait (submit -> formation) per
-        # request, dispatch-wait (formation -> execution start) per batch.
-        # Inline execution starts at formation time, so its dispatch wait
-        # is ~0 and the totals match the pre-pipeline series
-        dispatch_wait = max(0.0, t0 - batch.t_formed)
-        waits = [batch.t_formed - r.t_submit for r in reqs]
-        misses = sum(1 for r in reqs
-                     if r.deadline is not None and t1 > r.deadline)
-        if tr.enabled:
-            self._trace_batch(reqs, plans, bucket, t0, t1, attempt,
-                              worker=worker)
-        do_measure = False
-        with self._cv:
-            if self.plans is plans:
-                # don't let a batch that was in flight across a swap() write
-                # the OLD plans' latency into the estimator the swap seeded
-                prev = self._lat_ewma.get(bucket)
-                self._lat_ewma[bucket] = (exec_s if prev is None
-                                          else 0.5 * prev + 0.5 * exec_s)
-            self._finish_slots(reqs, y, t1)
-            self._evict_expired(t1)
-            self.metrics.record_batch(t1, n, bucket, exec_s, waits, misses,
-                                      dispatch_wait_s=dispatch_wait)
-            if getattr(plans, "safe_mode", False):
-                self.metrics.record_degraded_batch()
-            if self.breaker is not None and batch.gen == self._plan_gen \
-                    and self.breaker.on_success() == "reset":
-                # half-open probe served: back on the fast plan for good
-                self.metrics.record_breaker_reset()
-                self._fast_plans = None
-            if self.measure_dynamic_every > 0:
-                self._measure_countdown -= 1
-                if self._measure_countdown <= 0:
-                    self._measure_countdown = self.measure_dynamic_every
-                    do_measure = True
-            # the seen-check must be atomic under the pool (two workers
-            # finishing the same fresh (plan set, bucket) concurrently);
-            # the observe itself stays outside the lock
-            io_key = (id(plans), bucket)
-            io_first = io_key not in self._io_seen
-            if io_first:
-                self._io_seen.add(io_key)
+        with _trace.span("batch.finish"):
+            exec_s = t1 - t0
+            # the pipeline wait split: form-wait (submit -> formation) per
+            # request, dispatch-wait (formation -> execution start) per
+            # batch.  Inline execution starts at formation time, so its
+            # dispatch wait is ~0 and the totals match the pre-pipeline
+            # series
+            dispatch_wait = max(0.0, t0 - batch.t_formed)
+            waits = [batch.t_formed - r.t_submit for r in reqs]
+            misses = sum(1 for r in reqs
+                         if r.deadline is not None and t1 > r.deadline)
+            if sp.recording:
+                sp["attempt"] = attempt + 1
+                sp["wait_min_ms"] = 1e3 * min(waits)
+                sp["wait_max_ms"] = 1e3 * max(waits)
+                sp["misses"] = misses
+                if tr.enabled:
+                    self._trace_requests(sp, reqs, bucket, t0, t1, ok=True)
+            do_measure = False
+            with self._cv:
+                if self.plans is plans:
+                    # don't let a batch that was in flight across a swap()
+                    # write the OLD plans' latency into the estimator the
+                    # swap seeded
+                    prev = self._lat_ewma.get(bucket)
+                    self._lat_ewma[bucket] = (exec_s if prev is None
+                                              else 0.5 * prev + 0.5 * exec_s)
+                self._finish_slots(reqs, y, t1)
+                self._evict_expired(t1)
+                self.metrics.record_batch(t1, n, bucket, exec_s, waits,
+                                          misses,
+                                          dispatch_wait_s=dispatch_wait)
+                if getattr(plans, "safe_mode", False):
+                    self.metrics.record_degraded_batch()
+                if self.breaker is not None and batch.gen == self._plan_gen \
+                        and self.breaker.on_success() == "reset":
+                    # half-open probe served: back on the fast plan for good
+                    self.metrics.record_breaker_reset()
+                    self._fast_plans = None
+                if self.measure_dynamic_every > 0:
+                    self._measure_countdown -= 1
+                    if self._measure_countdown <= 0:
+                        self._measure_countdown = self.measure_dynamic_every
+                        do_measure = True
+                # the seen-check must be atomic under the pool (two workers
+                # finishing the same fresh (plan set, bucket) concurrently);
+                # the observe itself stays outside the lock
+                io_key = (id(plans), bucket)
+                io_first = io_key not in self._io_seen
+                if io_first:
+                    self._io_seen.add(io_key)
         # I/O telemetry runs OUTSIDE the lock: static gauges once per
-        # (plan set, bucket), measured dynamic I/O on the sampling cadence
+        # (plan set, bucket) — also the one io.plan event that carries the
+        # plan's I/O profile — measured dynamic I/O on the sampling cadence
         if io_first:
-            self.io.observe_plan(bucket, plans.plans.get(bucket, plans.base))
+            plan = plans.plans.get(bucket, plans.base)
+            self.io.observe_plan(bucket, plan)
+            if tr.enabled:
+                tr.event("io.plan", model=self.name, bucket=bucket,
+                         **plan_io_attrs(plan))
         if do_measure:
             self._measure_dynamic(plans, bucket, x)
         return n
@@ -1451,11 +1508,14 @@ class SparseServer:
     # ------------------------------------------------------------------ #
     # observability
     # ------------------------------------------------------------------ #
-    def snapshot(self) -> dict:
+    def snapshot(self, totals: bool = True) -> dict:
         """One JSON-safe cut of everything observable about this server:
         serving metrics (atomic — see ``ServingMetrics.snapshot``),
-        per-bucket I/O gauges, resilience state, tracer accounting.  This
-        is the dict ``obs.prom.render_prometheus`` renders."""
+        per-bucket I/O gauges, resilience state, and, with an enabled
+        tracer, its accounting and (``totals``) the process-wide span and
+        counter totals (``obs.trace.totals``; a router reports them once,
+        for all its models).  This is the dict
+        ``obs.prom.render_prometheus`` renders."""
         snap = self.metrics.snapshot()
         snap["model"] = self.name
         snap["queue_depth_now"] = self.queue_depth
@@ -1470,6 +1530,8 @@ class SparseServer:
         snap["io"] = self.io.snapshot()
         if self.tracer.enabled:
             snap["tracer"] = self.tracer.snapshot()
+            if totals:
+                snap["tracer"]["totals"] = _trace.totals()
         return snap
 
 
@@ -1838,18 +1900,21 @@ class ModelRouter:
     def snapshot(self) -> dict:
         """Full observability snapshot: every model's ``SparseServer
         .snapshot()`` (metrics + I/O gauges + resilience state) under
-        ``models``, plus the process totals.  This is what a router-level
-        Prometheus endpoint renders — the ``models`` map becomes a
-        ``model=`` label."""
+        ``models``, plus the process totals and, with an enabled tracer,
+        the process-wide span and counter totals once (``tracer``).  This
+        is what a router-level Prometheus endpoint renders — the ``models``
+        map becomes a ``model=`` label."""
         base = self.metrics_snapshot()
         out = {
-            "models": {name: s.snapshot()
+            "models": {name: s.snapshot(totals=False)
                        for name, s in self.servers.items()},
             "total": base["total"],
             "router": base["router"],
         }
         if self._pool is not None:
             out["pool"] = self._pool.snapshot()
+        if self.tracer.enabled:
+            out["tracer"] = {"totals": _trace.totals()}
         return out
 
     def summary(self) -> str:

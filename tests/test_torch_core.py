@@ -1,10 +1,13 @@
 """The port's copied modules and its import boundary.
 
-``repro_torch.core``, ``repro_torch.obs.{trace,series,telemetry,prom}`` and
+``repro_torch.core``, ``repro_torch.obs.{series,telemetry,prom}`` and
 ``repro_torch.serving.{resilience,http}`` are verbatim copies of the
 reference's modules, so the Theorem-1 order, Connection Reordering at a
 given seed, ``simulate``, ``theorem1_bounds``, the resilience machinery, the
-front door and the Prometheus exposition agree by construction; the model
+front door and the Prometheus exposition agree by construction;
+``repro_torch.obs.trace`` extends its reference's (a profiler sink, the
+totals, one ring record per batch) and keeps every name and signature of
+its public API; the model
 config, the architecture registry, the data pipeline's classes and the
 fault-tolerance module are copies whose only changes are import lines; the
 port imports neither ``jax`` nor ``ml_dtypes`` nor anything of ``repro``.
@@ -36,8 +39,38 @@ IMPORT_COPIES = ["models/config.py"] + sorted(
     f"configs/{f.name}" for f in (ROOT / "src" / "repro" / "configs").glob("*.py"))
 
 
+# copies the port has extended: every public name of the reference's
+# module is there, with the same signature (classes: each public method's)
+EXTENDED = {"obs/trace.py": "repro_torch.obs.trace"}
+
+
+def _public_api(mod):
+    import inspect
+
+    api = {}
+    for name in mod.__all__:
+        obj = getattr(mod, name)
+        if inspect.isclass(obj):
+            for m, f in vars(obj).items():
+                if not m.startswith("_") and callable(f):
+                    api[f"{name}.{m}"] = str(inspect.signature(f))
+        elif callable(obj):
+            api[name] = str(inspect.signature(obj))
+        else:
+            api[name] = type(obj).__name__
+    return api
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_byte_identical(rel):
+    if rel in EXTENDED:
+        import importlib
+
+        ref = _public_api(importlib.import_module(
+            "repro." + rel[:-3].replace("/", ".")))
+        port = _public_api(importlib.import_module(EXTENDED[rel]))
+        assert ref and {k: port.get(k) for k in ref} == ref
+        return
     ref = (ROOT / "src" / "repro" / rel).read_bytes()
     port = (ROOT / "src" / "repro_torch" / rel).read_bytes()
     assert port == ref

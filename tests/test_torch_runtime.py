@@ -555,3 +555,287 @@ def test_prometheus_snapshot_matches_the_reference():
                                              k)}
     assert {k: ts[k] for k in counts} == {k: js[k] for k in counts}
     assert ts["repro_served"] == 11 and ts["repro_cancelled"] == 1
+
+
+# --------------------------------------------------------------------------- #
+# tracing: the batch path's spans, the profiler sink, the totals, the ring
+# --------------------------------------------------------------------------- #
+
+BATCH_PHASES = ["batch.stack", "bucket.pad", "plan.input", "plan.launch",
+                "bucket.fetch", "batch.finish"]
+
+
+class TickClock(FakeClock):
+    """A fake clock one microsecond further on at every read, so spans
+    have lengths and an order."""
+
+    def __call__(self):
+        self.t += 1e-6
+        return self.t
+
+
+def test_one_batch_yields_the_span_tree(plans):
+    from repro_torch.obs import Tracer
+
+    clock = TickClock()
+    tracer = Tracer(clock=clock)
+    server = SparseServer(plans, clock=clock, tracer=tracer, name="m")
+    rids = [server.submit(x) for x in rows(3)]
+    assert server.step(flush=True) == 3
+    spans = tracer.spans()
+    (ex,) = [s for s in spans if s.name == "batch.execute"]
+    kids = [s for s in spans if s.name in BATCH_PHASES]
+    assert [s.name for s in sorted(kids, key=lambda s: s.t0)] == BATCH_PHASES
+    for a, b in zip(sorted(kids, key=lambda s: s.t0),
+                    sorted(kids, key=lambda s: s.t0)[1:]):
+        assert a.t1 <= b.t0
+    assert all(ex.t0 < s.t0 and s.t1 < ex.t1 for s in kids)
+    assert {s.tid for s in kids} == {ex.tid}
+    a = ex.attrs
+    assert (a["model"], a["bucket"], a["n"], a["attempt"], a["degraded"],
+            a["misses"], a["syncs"]) == ("m", 4, 3, 1, False, 0, 0)
+    assert 0 < a["wait_min_ms"] <= a["wait_max_ms"]
+    assert not any(k.startswith("io_") for k in a)
+    (io,) = [s for s in spans if s.name == "io.plan"]
+    assert io.phase == "i" and io.attrs["bucket"] == 4
+    assert io.attrs["io_tile_reads"] > 0 and io.attrs["backend"]
+    for name, phase in (("request.submit", "i"), ("request.queue", "X"),
+                        ("request.done", "i")):
+        got = [s for s in spans if s.name == name]
+        assert sorted(s.attrs["rid"] for s in got) == sorted(rids)
+        assert {s.phase for s in got} == {phase}
+    queue = {s.attrs["rid"]: s for s in spans if s.name == "request.queue"}
+    done = {s.attrs["rid"]: s for s in spans if s.name == "request.done"}
+    stack, pad = (next(s for s in kids if s.name == n)
+                  for n in ("batch.stack", "bucket.pad"))
+    for r in rids:
+        # the wait ends as the first attempt starts, after the rows are
+        # stacked; the answer is done before the batch's finish
+        assert queue[r].t0 < stack.t1 < queue[r].t1 < pad.t0
+        assert done[r].t0 < ex.t1
+        assert done[r].attrs == {"model": "m", "rid": r, "ok": True,
+                                 "miss": False}
+    # a second batch on the same bucket records no second io.plan
+    for x in rows(4, seed=1):
+        server.submit(x)
+    server.step(flush=True)
+    assert sum(s.name == "io.plan" for s in tracer.spans()) == 1
+
+
+def test_scheduler_idle_spans_one_per_batch(plans):
+    from repro_torch.obs import Tracer
+
+    tracer = Tracer()
+    server = SparseServer(plans, tracer=tracer, max_wait_ms=1.0).start()
+    try:
+        for k in range(4):
+            rids = [server.submit(x) for x in rows(3, seed=k)]
+            for r in rids:
+                assert server.wait(r, timeout=WAIT_S) is not None
+    finally:
+        server.shutdown(drain=True, drain_timeout_s=WAIT_S)
+    spans = tracer.spans()
+    idle = [s for s in spans if s.name == "scheduler.idle"]
+    execs = [s for s in spans if s.name == "batch.execute"]
+    assert len(execs) >= 4 and len(idle) == len(execs)
+    # each idle span but the one the shutdown closed ended at a formation
+    assert all(s.attrs["depth"] >= 1 for s in idle[:-1])
+    assert {s.tid for s in idle} == {s.tid for s in execs}
+
+
+def test_profiler_sink_and_totals_with_the_null_tracer(plans):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import NULL_TRACER, trace
+
+    server = SparseServer(plans, clock=FakeClock())
+    for x in rows(3):
+        server.submit(x)
+    trace.reset_totals()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert server.step(flush=True) == 3
+    names = {e.name for e in prof.events()}
+    assert set(BATCH_PHASES) | {"batch.execute"} <= names
+    got = trace.totals()
+    assert {n: got["spans"][n]["count"]
+            for n in BATCH_PHASES + ["batch.execute"]} == \
+        {n: 1 for n in BATCH_PHASES + ["batch.execute"]}
+    assert all(v["seconds"] >= 0 for v in got["spans"].values())
+    assert NULL_TRACER.spans() == []
+    # the profiler off again: nothing more is added
+    for x in rows(2):
+        server.submit(x)
+    server.step(flush=True)
+    assert trace.totals() == got
+    assert not torch.autograd.profiler._is_profiler_enabled
+
+
+def test_inactive_tracing_creates_nothing(plans, monkeypatch):
+    import torch
+
+    from repro_torch.obs import NULL_TRACER, Tracer, trace
+
+    made = {"span": 0, "record_function": 0, "event": 0}
+
+    class CountingSpan(trace._SpanCtx):
+        def __init__(self, *a, **kw):
+            made["span"] += 1
+            super().__init__(*a, **kw)
+
+    def counting(cls, key):
+        class Counting(cls):
+            def __init__(self, *a, **kw):
+                made[key] += 1
+                super().__init__(*a, **kw)
+        return Counting
+
+    monkeypatch.setattr(trace, "_SpanCtx", CountingSpan)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        counting(torch.autograd.profiler.record_function,
+                                 "record_function"))
+    monkeypatch.setattr(torch.cuda, "Event",
+                        counting(torch.cuda.Event, "event"))
+    trace.reset_totals()
+    for tracer in (NULL_TRACER, Tracer(enabled=False)):
+        server = SparseServer(plans, clock=FakeClock(), tracer=tracer)
+        for x in rows(5):
+            server.submit(x)
+        server.drain()
+        assert tracer.spans() == []
+    server = SparseServer(plans, tracer=Tracer(enabled=False)).start()
+    try:
+        rid = server.submit(rows(1)[0])
+        assert server.wait(rid, timeout=WAIT_S) is not None
+    finally:
+        server.shutdown(drain=True, drain_timeout_s=WAIT_S)
+    assert made == {"span": 0, "record_function": 0, "event": 0}
+    assert trace.totals() == {"spans": {}, "counters": {}}
+
+
+def test_counters_add_to_the_totals_and_every_open_span():
+    from repro_torch.obs import Tracer, trace
+
+    trace.reset_totals()
+    trace.count("syncs")                          # inactive: nothing
+    tracer = Tracer()
+    with tracer.span("batch.execute") as outer:
+        with trace.span("bucket.fetch") as inner:
+            trace.count("syncs")
+        trace.count("syncs", 2)
+    assert outer.recording and inner.recording
+    assert trace.totals()["counters"] == {"syncs": 3}
+    got = {s.name: s.attrs for s in tracer.spans()}
+    assert got == {"batch.execute": {"syncs": 3}, "bucket.fetch": {"syncs": 1}}
+
+
+def test_router_reports_the_totals_once(plans):
+    from repro_torch.obs import Tracer, render_prometheus, trace
+
+    trace.reset_totals()
+    clock = FakeClock()
+    router = ModelRouter({"a": plans, "b": plans}, clock=clock,
+                         tracer=Tracer(clock=clock))
+    for name in ("a", "b"):
+        for x in rows(2):
+            router.submit(name, x)
+    router.drain()
+    snap = router.snapshot()
+    assert snap["tracer"]["totals"]["spans"]["batch.execute"]["count"] == 2
+    assert all("totals" not in m["tracer"] for m in snap["models"].values())
+    text = render_prometheus(snap)
+    name = "repro_tracer_totals_spans_batch_execute_count"
+    assert f"\n{name} 2\n" in text and name + "{" not in text
+    alone = SparseServer(plans, clock=clock, tracer=Tracer(clock=clock))
+    assert alone.snapshot()["tracer"]["totals"] == trace.totals()
+
+
+def test_enabled_tracer_export_keeps_every_request(plans, tmp_path):
+    from repro_torch.obs import Tracer
+
+    clock = FakeClock()
+    tracer = Tracer(clock=clock)
+    server = SparseServer(plans, clock=clock, tracer=tracer, max_queue=6)
+    appends = []
+    record = tracer._record
+    tracer._record = lambda rec: (appends.append(rec), record(rec))
+    admitted, rejected = [], 0
+    for k, n in enumerate((3, 8, 1, 5)):
+        for x in rows(n, seed=k):
+            rid = server.submit(x)
+            if rid is None:
+                rejected += 1
+            else:
+                admitted.append(rid)
+        clock.advance(0.01)
+        server.drain()
+    assert rejected == 2
+    batches = server.metrics.batches
+    # one ring append per batch, one per bucket's io.plan, one per rejection
+    n_io = len(server._io_seen)
+    assert len(appends) == batches + n_io + rejected
+    events = tracer.to_chrome()["traceEvents"]
+    json.loads(json.dumps(events))
+    by = {}
+    for e in events:
+        by.setdefault(e["name"], []).append(e)
+    assert sorted(e["args"]["rid"] for e in by["request.queue"]) == admitted
+    assert all(e["ph"] == "X" for e in by["request.queue"])
+    assert sorted(e["args"]["rid"] for e in by["request.done"]) == admitted
+    submits = by["request.submit"]
+    assert sorted(e["args"]["rid"] for e in submits
+                  if e["args"]["admitted"]) == admitted
+    assert sum(not e["args"]["admitted"] for e in submits) == rejected
+    assert len(by["batch.execute"]) == batches
+    assert [e["ts"] for e in events] == sorted(e["ts"] for e in events)
+    snap = server.snapshot()["tracer"]
+    assert snap["recorded"] == len(events) and snap["dropped"] == 0
+    assert snap["totals"]["spans"]["batch.execute"]["count"] >= batches
+    lines = open(tracer.export(str(tmp_path / "t.jsonl"))).read().splitlines()
+    assert len(lines) == len(events)
+
+
+@pytest.mark.stress
+def test_totals_and_ring_lose_no_update_across_threads():
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import Tracer, trace
+
+    threads, spans_each = 12, 300
+    tracer = Tracer(capacity=10 ** 6)
+    go = threading.Barrier(threads)
+
+    def work(i):
+        go.wait(timeout=WAIT_S)
+        for k in range(spans_each):
+            # alternately the profiler sink alone and an enabled ring
+            with (trace.span("x.sink") if k % 2 else
+                  tracer.span("x.ring", i=i)):
+                with trace.span("x.kid"):
+                    trace.count("n")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    trace.reset_totals()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            ts = [threading.Thread(target=work, args=(i,))
+                  for i in range(threads)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=WAIT_S)
+            assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    half = threads * spans_each // 2
+    got = trace.totals()
+    assert {k: v["count"] for k, v in got["spans"].items()} == \
+        {"x.sink": half, "x.ring": half, "x.kid": 2 * half}
+    assert got["counters"] == {"n": 2 * half}
+    spans = tracer.spans()
+    assert tracer.recorded == len(spans) == 2 * half
+    ring = [s for s in spans if s.name == "x.ring"]
+    assert len(ring) == half and all(s.attrs["n"] == 1 for s in ring)

@@ -202,3 +202,85 @@ def test_serve_runtime_flags_on_cpu(case, tmp_path, capsys):
     # a second run warm-starts from the store
     serve.serve_sparse_ffnn(serve.parse_args(argv + ["--requests", "2"]))
     assert "plan-store hit" in capsys.readouterr().out
+
+
+BATCH_READERS = ["batch_device_ms.online", "batch_prep_ms.online",
+                 "batch_fetch_ms.online", "batch_finish_ms.online"]
+
+
+def test_benchmark_batch_readers_read_the_programs_totals(tmp_path,
+                                                          monkeypatch):
+    """The benchmark's readers of the batch path's phases on a small CPU
+    cell: None untraced (the program's totals stay empty), a number in a
+    traced run, read from the totals its profiled stretch filled — all but
+    the device time, which the CPU has none of."""
+    from pathlib import Path
+
+    from repro_torch.obs import trace
+
+    monkeypatch.syspath_prepend(
+        str(Path(__file__).resolve().parents[1] / "bench"))
+    from sparsebench.spec import load_cell
+    from sparsebench.testing import tiny_root, tiny_run
+
+    root = tiny_root(tmp_path)
+    cell = load_cell("tiny-ffnn.tiny-online", root)
+    assert BATCH_READERS == [m["name"] for m in cell.per_layer][-4:]
+    trace.reset_totals()
+    line, out = tiny_run(root, "tiny-online", seconds=0.3)
+    assert line["correct"] is True
+    assert all(cell.reader(n)(out.obs) is None for n in BATCH_READERS)
+    trace.reset_totals()
+    line, out = tiny_run(root, "tiny-online", trace=True)
+    got = line["metrics"]
+    assert "batch_device_ms.online" not in got
+    for name in BATCH_READERS[1:]:
+        assert got[name]["unit"] == "ms" and got[name]["value"] > 0
+    spans = trace.totals()["spans"]
+    batches = spans["batch.execute"]["count"]
+    assert 0 < batches <= out.info["requests"]
+    assert got["batch_fetch_ms.online"]["value"] == pytest.approx(
+        1e3 * spans["bucket.fetch"]["seconds"] / batches)
+    assert got["batch_prep_ms.online"]["value"] == pytest.approx(
+        1e3 * sum(spans[n]["seconds"] for n in
+                  ("batch.stack", "bucket.pad", "plan.input", "plan.launch"))
+        / batches)
+
+
+
+def test_benchmark_device_reader_counts_kernels_alone(tmp_path, monkeypatch):
+    """``batch_device_ms.online`` takes the kernels' time from the device
+    trace: memory copies and the program's own spans shown on the device
+    are left out, and the batches come from the program's totals."""
+    from pathlib import Path
+
+    from repro_torch.obs import trace
+
+    monkeypatch.syspath_prepend(
+        str(Path(__file__).resolve().parents[1] / "bench"))
+    from sparsebench.spec import load_cell
+    from sparsebench.testing import tiny_root
+
+    cell = load_cell("tiny-ffnn.tiny-online", tiny_root(tmp_path))
+    read = cell.reader("batch_device_ms.online")
+    stretch = {"device_ops": [["bsr_megakernel_kernel", 0.004],
+                              ["plan.launch", 0.005],
+                              ["Memcpy HtoD (Pageable -> Device)", 0.002],
+                              ["Memset (Device)", 0.001],
+                              ["other_kernel", 0.002]]}
+    trace.reset_totals()
+    assert read({"stretch": stretch}) is None     # no batch in the totals
+    with profile_cpu():
+        for _ in range(3):
+            with trace.span("batch.execute"), trace.span("plan.launch"):
+                pass
+    assert trace.totals()["spans"]["batch.execute"]["count"] == 3
+    assert read({"stretch": stretch}) == pytest.approx(2.0)
+    assert read({"stretch": None}) is None
+    trace.reset_totals()
+
+
+def profile_cpu():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
