@@ -40,7 +40,11 @@ Phases, each of which must pass (any failure exits non-zero):
      time between CUDA events (median of 30, after warm-up), which adds the
      host's share of the call; the megakernel rows also carry the device
      time of two chained ``bsr_matmul`` launches (``two_bsr_matmul_ms``,
-     what ``--no-fuse`` runs) and the cooperative grid size; then one
+     what ``--no-fuse`` runs) and the cooperative grid size; the
+     megakernel again at the offline benchmark cells' 4,096 rows on both
+     benchmark nets' widths (the BERT FFNN and the 512-wide, 4-layer MLP
+     of 64 x 64 blocks), f32, with the walk it took (``phase_times_large``,
+     which also runs alone against another tree's ``src``); then one
      profiled serving window, for the device's busy share;
   6. ``moe_ffn`` against its plain version at the expert widths of
      Granite-3.0-1B-A400M (E = 32, C = 640, d = 1024, f = 512, gelu), f32
@@ -235,6 +239,11 @@ WAIT_S = 120.0
 # deadline of the two-process gloo run
 SHARD_MESHES, SHARD_BATCHES = ((2, 1), (4, 1), (4, 2)), (1, 4, 33)
 GLOO_TIMEOUT_S = 300.0
+# phase 5's large calls: the offline benchmark cells' batch, on the widths
+# of the benchmark's two nets (bench/configs): sizes, block, activation
+LARGE_B = 4096
+LARGE_NETS = {"bert-ffnn": ([1024, 4096, 1024], 128, "gelu"),
+              "random-mlp-512x5": ([512] * 5, 64, "relu")}
 # H100 SXM data-sheet peaks: HBM bytes/s, f32 FMA operations/s outside the
 # tensor cores (the kernels' arithmetic) and bf16 tensor-core operations/s.
 # phase 9: LM serving; reduced archs at --batch 4 --prompt-len 32 --gen 16
@@ -426,7 +435,8 @@ def phase_env():
 # the kernels whose registers and spills phase 2 reports, as their mangled
 # names begin
 NEW_KERNELS = ("bsr_matmul_kernel", "bsr_megakernel_kernel",
-               "moe_bf16_kernel", "moe_f32_kernel", "adamw_kernel")
+               "bsr_megakernel_row_tiled_kernel", "moe_bf16_kernel",
+               "moe_f32_kernel", "adamw_kernel")
 
 
 def ptxas_summary(log):
@@ -1048,6 +1058,64 @@ def phase_times(plans, rng):
     for row in detail:
         print("time: " + json.dumps(row))
     return entries
+
+
+def phase_times_large():
+    """The megakernel at LARGE_B rows on each of LARGE_NETS (f32 weights
+    and x), against its plain version, timed beside its bound and the
+    dense chain addmm -> act -> ... -> addmm; the row's ``walk`` is the
+    route the call took (split-K where the tree has no row-tiled one).
+    The bound counts the kept blocks' FLOPs and x, y, the kept blocks and
+    the biases once, as the benchmark's roofline does."""
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.kernels.ref import bsr_to_dense
+    from repro_torch.launch.serve import make_ffnn_layers
+
+    rows = []
+    for name, (sizes, block, act) in LARGE_NETS.items():
+        layers = make_ffnn_layers(sizes, DENSITY, block)
+        plan = Engine(activation=act, reorder=True,
+                      reorder_iters=REORDER_ITERS, device="cuda").compile(
+                          layers)
+        check(plan.fused, f"{name}: the plan did not fuse")
+        flat = plan.flat
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (LARGE_B, sizes[0])).astype(np.float32)).cuda()
+        y = K.bsr_megakernel(x, flat, act, "none")
+        err, _ = rel_err(y, K.bsr_megakernel_plain(x, flat, act, "none"))
+        check(err < TOL[torch.float32],
+              f"bsr_megakernel {name} B={LARGE_B}: error {err:.3e}")
+        biases = [torch.as_tensor(l.bias).cuda() for l in layers]
+        dense = [bsr_to_dense(l.rows, l.cols,
+                              torch.as_tensor(l.blocks).cuda(), l.grid_in,
+                              l.grid_out) for l in layers]
+        fn = K.ACTIVATIONS[act]
+
+        def chain():
+            h = x
+            for k, (b, w) in enumerate(zip(biases, dense)):
+                h = torch.addmm(b, h, w)
+                if k < len(dense) - 1:
+                    h = fn(h)
+            return h
+
+        kept = sum(l.nnz_blocks for l in layers)
+        nbytes = 4 * (x.numel() + LARGE_B * sizes[-1] + kept * block * block
+                      + sum(sizes[1:]))
+        row = timed("bsr_megakernel", "f32", f"{name}, B={LARGE_B}",
+                    lambda: K.bsr_megakernel(x, flat, act, "none"),
+                    lambda: K.bsr_megakernel_plain(x, flat, act, "none"),
+                    chain, *bound_ms(nbytes,
+                                     2 * LARGE_B * block * block * kept))
+        row["walk"] = "row-tiled" if getattr(K, "row_tiled", None) and \
+            K.row_tiled(LARGE_B, flat) else "split-K"
+        row["grid"] = K.bsr_megakernel.grid
+        row["max_rel_err"] = err
+        print("time: " + json.dumps(row), flush=True)
+        rows.append(row)
+        del x, y, dense
+    return rows
 
 
 def kernel_line(entries, launches, main_err, sharded_launches):
@@ -3796,6 +3864,7 @@ def main() -> int:
         launches["bsr_matmul"] = phase_main_path(no_fuse=True)[0]["bsr_matmul"]
         launches["bsr_megakernel_gated"] = phase_gated_main_path()
         entries = phase_times(plans, rng)
+        phase_times_large()
         phase_trace(server, args)
         launches["moe_ffn"], main_err["moe_ffn"], entries["moe_ffn"] = \
             phase_moe()

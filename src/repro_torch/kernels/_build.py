@@ -21,9 +21,10 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "bsr_kernels.cu", CSRC / "bsr_matmul.cu",
+SOURCES = (CSRC / "bsr_kernels.cu", CSRC / "bsr_row_tiled.cu",
+           CSRC / "bsr_row_tiled_gated.cu", CSRC / "bsr_matmul.cu",
            CSRC / "moe_ffn.cu", CSRC / "adamw.cu")
-HEADERS = (CSRC / "common.cuh", CSRC / "split_k.cuh")
+HEADERS = (CSRC / "common.cuh", CSRC / "row_tile.cuh", CSRC / "split_k.cuh")
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,6 +34,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_ROW_TILED = ([_I] * 2 + [_P] * 14 + [_I] * 8
+              + [ctypes.c_uint, ctypes.POINTER(_I), _P, ctypes.POINTER(_I)])
 _SIGNATURES = {
     # x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, step_run, part_off,
     # bias, scales, partial, arrivals, out, B, n_in, n_out, bm, bn, n_steps,
@@ -46,6 +49,12 @@ _SIGNATURES = {
     "bsr_megakernel_launch": [_I] * 3 + [_P] * 17 + [_I] * 11
                              + [ctypes.c_uint, ctypes.POINTER(_I), _P,
                                 ctypes.POINTER(_I)],
+    # both: x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, run_order,
+    # bias_idx, bias_tiles, scales, occ0, slots, occ, hidden, out, B, n_in,
+    # n_out, bs, n_layers, hidden_tiles, act, final_act, epoch, run_seg
+    # (host int[n_layers + 1]), stream, grid (int*, out)
+    "bsr_megakernel_row_tiled_launch": _ROW_TILED,
+    "bsr_megakernel_row_tiled_gated_launch": _ROW_TILED,
     # dtype, x, w_up, w_down, out, scratch, E, C, d, f, rows, stages,
     # f_chunk, route, act, stream
     "moe_ffn_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P],

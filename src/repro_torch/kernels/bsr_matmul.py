@@ -11,6 +11,10 @@ and binds them through ctypes.  Each source's header notes what bounds its
 kernel on the H100 and what its design does about it.  ``split_plan`` is
 that walk's work decomposition (step, K-slice, row chunk), built once per
 schedule by ``ops.compile_schedule`` and ``ops.compile_flat_schedule``.
+A large batch takes the megakernel's second route instead, the row-tiled
+walk (``csrc/row_tile.cuh``): ``row_tiled(B, flat)`` chooses it from
+the batch and the schedule alone, and ``row_runs`` is the order in which it
+deals out each layer's runs, built once per flat schedule.
 
 Each wrapper dispatches on the device of ``x``: a CUDA tensor launches the
 kernel on ``torch.cuda.current_stream()`` (or raises — there is no fallback),
@@ -35,9 +39,12 @@ run.  Their products assume PyTorch's default full-f32 matmul
 
 ``bsr_matmul.launches`` / ``bsr_megakernel.launches`` count kernel launches
 and ``bsr_megakernel.gated_launches`` the gated megakernel's (plain-version
-calls are not counted), exactly under concurrency; ``reset_launches()``
-zeroes all three.  ``bsr_megakernel.grid`` is the cooperative grid size of
-the last launch.
+calls are not counted), exactly under concurrency;
+``bsr_megakernel.row_tiled_launches`` counts the megakernel launches, gated
+or not, that took the row-tiled route (and, while tracing is active, each
+adds 1 to the ``mega.row_tiled`` counter of ``obs.trace``);
+``reset_launches()`` zeroes all four.  ``bsr_megakernel.grid`` is the
+cooperative grid size of the last launch.
 """
 
 from __future__ import annotations
@@ -46,12 +53,13 @@ import ctypes
 import dataclasses
 import functools
 import threading
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs import trace as _trace
 from . import _build
 
 Activation = Union[str, Callable, None]
@@ -93,6 +101,13 @@ _W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _SPLIT_THREADS, _SPLIT_MAX_VEC, _SPLIT_MAX_ROWS = 128, 8, 32
 # the megakernel takes its segment table by value (csrc/bsr_kernels.cu)
 _MEGA_MAX_LAYERS = 32
+# the row-tiled route (csrc/row_tile.cuh): the block sizes it has
+# instances for, the batch rows of its items (kRowBM), and the least items
+# (runs x row tiles) that every layer needs for the route, set from a
+# sweep of B on the H100 (PERF.md)
+_ROW_BLOCKS = (64, 128)
+_ROW_BM = 64
+_ROW_MIN_ITEMS = 16
 
 
 def apply_activation(y: torch.Tensor, act: Activation) -> torch.Tensor:
@@ -142,6 +157,7 @@ def reset_launches() -> None:
         bsr_matmul.launches = 0
         bsr_megakernel.launches = 0
         bsr_megakernel.gated_launches = 0
+        bsr_megakernel.row_tiled_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +204,61 @@ def split_plan(run_ptr, bm: int, bn: int, itemsize: int) -> SplitPlan:
     return SplitPlan(step_run=step_run.astype(np.int32),
                      part_off=(np.arange(n_steps) * n_slices).astype(np.int32),
                      k_slice=k_slice, n_slices=n_slices, vec=vec)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowRuns:
+    """The order in which the megakernel's row-tiled route deals out a flat
+    schedule's runs.
+
+    ``order`` lists each layer's output-tile runs longest first (ties in
+    schedule order), layer after layer; layer ``k``'s are
+    ``order[first[k]:first[k + 1]]``.  A work item is (run, row tile);
+    item ``i`` of layer ``k`` is row tile ``i % nt`` of run
+    ``order[first[k] + i // nt]``, and the CTAs take the items in rounds,
+    forward then backward (``csrc/row_tile.cuh``).
+    """
+
+    order: np.ndarray          # int32 [n_runs]
+    first: Tuple[int, ...]     # [n_layers + 1]
+
+
+def row_runs(run_ptr, segments) -> RowRuns:
+    """The row-tiled deal of a flat schedule with run table ``run_ptr``
+    and layer ``segments`` (every layer starts a run)."""
+    run_ptr = np.asarray(run_ptr, dtype=np.int64)
+    starts, steps = run_ptr[:-1], np.diff(run_ptr)
+    first = [int(np.searchsorted(starts, s)) for s, _ in segments]
+    first.append(len(starts))
+    order = [np.arange(a, b)[np.argsort(-steps[a:b], kind="stable")]
+             for a, b in zip(first[:-1], first[1:])]
+    return RowRuns(order=np.concatenate(order).astype(np.int32),
+                   first=tuple(first))
+
+
+def row_tiled(B: int, flat) -> bool:
+    """Whether a ``B``-row call of ``flat`` takes the megakernel's row-tiled
+    walk (else the split-K walk).
+
+    A function of ``B`` and the schedule alone.  Batches of up to 32 rows
+    (one split-K row chunk: the serving batches) always take the split-K
+    walk, and so do blocks the row-tiled kernel has no instance for.
+    Otherwise the call takes the row-tiled walk when every layer has at
+    least ``_ROW_MIN_ITEMS`` items, runs x row tiles.
+    """
+    runs = flat.row_runs
+    if runs is None or flat.block not in _ROW_BLOCKS or B <= _ROWS_PER_CTA:
+        return False
+    fewest = min(b - a for a, b in zip(runs.first[:-1], runs.first[1:]))
+    return fewest * -(-B // _ROW_BM) >= _ROW_MIN_ITEMS
+
+
+def megakernel_scratch_floats(B: int, flat, rows: bool) -> int:
+    """The f32 scratch of one megakernel launch, in floats: the hidden
+    ping-pong buffer [2, hidden_tiles, B, block] and, on the split-K walk
+    (``rows`` False), the partials [steps x K-slices, B, block]."""
+    n = 2 * flat.hidden_tiles * B * flat.block
+    return n if rows else n + flat.split.n_parts * B * flat.block
 
 
 def _dequant(blocks: torch.Tensor, scales: Optional[torch.Tensor]):
@@ -424,9 +495,11 @@ def bsr_megakernel(x: torch.Tensor, flat,
     ``activation`` is the one hidden epilogue, ``final_activation`` the last
     layer's.  ``x`` [B, n_in] is float32 or bfloat16 (any B); the output is
     [B, grid_out_final * block] in ``x.dtype``.  On the card the f32 scratch
-    (the hidden ping-pong buffer [2, hidden_tiles, B, block] and the
-    partials [steps x K-slices, B, block]) is allocated here with
-    ``torch.empty``.  The flat schedule's arrival counters and occupancy
+    (``megakernel_scratch_floats``: the hidden ping-pong buffer and, on the
+    split-K walk, the partials) is allocated here with ``torch.empty``.
+    ``row_tiled(B, flat)`` picks the walk; the row-tiled one reads ``x``
+    with 16-byte copies, so a view that is not 16-byte aligned takes the
+    split-K walk.  The flat schedule's arrival counters and occupancy
     slots are shared by its launches, which therefore go to one stream,
     under ``flat.lock``.
 
@@ -488,15 +561,17 @@ def _launch_megakernel(x, flat, act: int, fact: int, occ0, occ, out) -> None:
     split, index = flat.split, flat.split_index
     chunks = -(-B // _ROWS_PER_CTA)
     n_runs = flat.run_ptr.numel() - 1
-    # one f32 scratch: the hidden ping-pong buffer, then the partials
+    rows = row_tiled(B, flat) and x.data_ptr() % 16 == 0
+    # one f32 scratch: the hidden ping-pong buffer, then any partials
     n_hidden = 2 * flat.hidden_tiles * B * bs
-    scratch = torch.empty(n_hidden + split.n_parts * B * bs,
+    scratch = torch.empty(megakernel_scratch_floats(B, flat, rows),
                           dtype=torch.float32, device=x.device)
     scales = flat.scales
     grid = ctypes.c_int(0)
     with flat.lock:
         stream = _schedule_stream(flat, "bsr_megakernel")
-        if flat.arrivals is None or flat.arrivals.numel() < n_runs * chunks:
+        if not rows and (flat.arrivals is None or
+                         flat.arrivals.numel() < n_runs * chunks):
             # zero between launches: the last CTA of each run resets it
             flat.arrivals = torch.zeros(n_runs * chunks, dtype=torch.int32,
                                         device=x.device)
@@ -510,26 +585,48 @@ def _launch_megakernel(x, flat, act: int, fact: int, occ0, occ, out) -> None:
                 flat.slots = torch.zeros(n_slots, dtype=torch.int64,
                                          device=x.device)
             epoch = next_epoch(flat)
-        rc = _build.load().bsr_megakernel_launch(
-            _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype], split.vec,
-            x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
-            flat.cols.data_ptr(), flat.run_ptr.data_ptr(),
-            index[0].data_ptr(), index[1].data_ptr(),
-            flat.bias_idx.data_ptr(), flat.bias_tiles.data_ptr(),
-            None if scales is None else scales.data_ptr(),
-            occ0.data_ptr() if gate else None,
-            flat.slots.data_ptr() if gate else None,
-            occ.data_ptr() if gate else None,
-            scratch.data_ptr(), scratch.data_ptr() + 4 * n_hidden,
-            flat.arrivals.data_ptr(), out.data_ptr(), B, n_in, out.shape[1],
-            bs, flat.n_layers, flat.hidden_tiles, split.k_slice,
-            split.n_slices, flat.max_layer_steps, act, fact, epoch,
-            _segment_table(flat.segments), stream, ctypes.byref(grid))
+        if rows:
+            lib = _build.load()
+            launch = lib.bsr_megakernel_row_tiled_gated_launch if gate \
+                else lib.bsr_megakernel_row_tiled_launch
+            rc = launch(
+                _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype],
+                x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
+                flat.cols.data_ptr(), flat.run_ptr.data_ptr(),
+                flat.row_order.data_ptr(), flat.bias_idx.data_ptr(),
+                flat.bias_tiles.data_ptr(),
+                None if scales is None else scales.data_ptr(),
+                occ0.data_ptr() if gate else None,
+                flat.slots.data_ptr() if gate else None,
+                occ.data_ptr() if gate else None, scratch.data_ptr(),
+                out.data_ptr(), B, n_in, out.shape[1], bs, flat.n_layers,
+                flat.hidden_tiles, act, fact, epoch,
+                _int_table(flat.row_runs.first), stream, ctypes.byref(grid))
+        else:
+            rc = _build.load().bsr_megakernel_launch(
+                _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype], split.vec,
+                x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
+                flat.cols.data_ptr(), flat.run_ptr.data_ptr(),
+                index[0].data_ptr(), index[1].data_ptr(),
+                flat.bias_idx.data_ptr(), flat.bias_tiles.data_ptr(),
+                None if scales is None else scales.data_ptr(),
+                occ0.data_ptr() if gate else None,
+                flat.slots.data_ptr() if gate else None,
+                occ.data_ptr() if gate else None,
+                scratch.data_ptr(), scratch.data_ptr() + 4 * n_hidden,
+                flat.arrivals.data_ptr(), out.data_ptr(), B, n_in,
+                out.shape[1], bs, flat.n_layers, flat.hidden_tiles,
+                split.k_slice, split.n_slices, flat.max_layer_steps, act,
+                fact, epoch, _segment_table(flat.segments), stream,
+                ctypes.byref(grid))
     if rc:
         raise RuntimeError(
             f"bsr_megakernel: kernel launch failed, CUDA error {rc}")
     bsr_megakernel.grid = grid.value
     count_launch(bsr_megakernel, "gated_launches" if gate else "launches")
+    if rows:
+        count_launch(bsr_megakernel, "row_tiled_launches")
+        _trace.count("mega.row_tiled")
 
 
 @functools.lru_cache(maxsize=64)
@@ -537,6 +634,13 @@ def _segment_table(segments):
     """A flat schedule's layer starts and step count, as a C int array."""
     starts = [s for s, _ in segments] + [segments[-1][1]]
     return (ctypes.c_int * len(starts))(*starts)
+
+
+@functools.lru_cache(maxsize=256)
+def _int_table(values):
+    """A tuple of ints as a C int array."""
+    return (ctypes.c_int * len(values))(*values)
 bsr_megakernel.launches = 0
 bsr_megakernel.gated_launches = 0
+bsr_megakernel.row_tiled_launches = 0
 bsr_megakernel.grid = 0

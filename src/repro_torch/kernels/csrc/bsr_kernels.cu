@@ -9,10 +9,16 @@
 // epilogue and one final epilogue.  Its gated instance (Gate = true)
 // replaces the same Pallas kernel with gate=True (gating at
 // bsr_matmul.py:208-217, occupancy counts at :258-262): see "Gating" below.
+// These are the megakernel's split-K walk, for serving batches: a call of
+// more than 32 rows whose every layer has at least 16 items (runs x 64-row
+// tiles) takes the row-tiled walk instead (row_tile.cuh), as
+// bsr_matmul.row_tiled(B, flat) decides.  What is said below of the output
+// (bit-equal to two bsr_matmul launches with f32 x) holds for this walk.
 //
 // What bounds it on the H100.  It streams every scheduled weight block once;
 // at the paper's BERT-large FFNN (1024 -> 4096 -> 1024, density 0.1, 128x128
-// tiles) that is 4,259,840 B in f32 (65 blocks, patch blocks included),
+// tiles) that is 4,259,840 B in f32 (65 blocks, patch blocks included, at
+// chip_smoke.py's layout; the benchmark's layout schedules 66),
 // 1.3 us at 3.35 TB/s.  The arithmetic, 2 * B * 128 * 128 per block, is far
 // below the f32 FMA rate at serving batches (B <= 32).  So the floor is
 // latency: the launch, a few dependent round trips to L2 per layer (the

@@ -29,7 +29,13 @@ import numpy as np
 import torch
 
 from ..core.blocksparse import BSRLayer, is_contiguous_by_output
-from .bsr_matmul import SplitPlan, bsr_matmul, split_plan
+from .bsr_matmul import (
+    RowRuns,
+    SplitPlan,
+    bsr_matmul,
+    row_runs,
+    split_plan,
+)
 
 #: largest finite magnitude of float8_e4m3fn — the per-block fp8 scale maps
 #: each block's absmax onto it
@@ -222,7 +228,9 @@ class FlatSchedule:
     the split-K plan of the flat run table, ``split_index`` its
     (step_run, part_off) rows on the device and ``arrivals`` the per-run
     arrival counters (zero between launches; grown by the wrapper for
-    larger batches).  ``slots`` and ``epoch`` are the gated launch's
+    larger batches).  ``row_runs`` is the row-tiled route's deal of the
+    runs (``bsr_matmul.RowRuns``), ``row_order`` its run order on the
+    device.  ``slots`` and ``epoch`` are the gated launch's
     per-(layer, tile, row chunk) live-row counts, each tagged with the
     launch that wrote it.  ``lock`` guards all three across threads.
 
@@ -256,6 +264,8 @@ class FlatSchedule:
     split: Optional[SplitPlan] = None
     split_index: Optional[torch.Tensor] = None  # int32 [2, nnz_total]
     arrivals: Optional[torch.Tensor] = None     # int32 [n_runs * chunks]
+    row_runs: Optional[RowRuns] = None
+    row_order: Optional[torch.Tensor] = None    # int32 [n_runs]
     # the gated megakernel's occupancy slots (int64, epoch-tagged, kept
     # between launches; made anew by the wrapper when the row-chunk count
     # changes) and its launch count
@@ -370,6 +380,7 @@ def compile_flat_schedule(
     run_ptr = _run_ptr(first)
     blocks = torch.cat([sch.blocks for sch in schedules])
     split = split_plan(run_ptr, bs, bs, blocks.element_size())
+    runs = row_runs(run_ptr, segments)
 
     hidden_tiles = max([lay.grid_out for lay in layers[:-1]] or [1])
     return FlatSchedule(
@@ -398,6 +409,8 @@ def compile_flat_schedule(
         split_index=_on(device, np.stack([split.step_run, split.part_off])),
         arrivals=torch.zeros(len(run_ptr) - 1, dtype=torch.int32,
                              device=device),
+        row_runs=runs,
+        row_order=_on(device, runs.order),
     )
 
 

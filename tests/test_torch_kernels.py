@@ -404,15 +404,30 @@ def test_wrapper_rejects_non_cuda_non_cpu_tensor(make_stack):
 
 class FakeLib:
     """Stands in for the built library: records each megakernel launch's
-    epoch (its fourth argument from the end) and succeeds."""
+    walk and epoch (the fourth argument from the end of either entry) and
+    succeeds."""
 
     def __init__(self):
         self.epochs = []
+        self.walks = []
         self._mu = threading.Lock()
 
     def bsr_megakernel_launch(self, *args):
         with self._mu:
             self.epochs.append(args[-4])
+            self.walks.append("split-K")
+        return 0
+
+    def bsr_megakernel_row_tiled_launch(self, *args):
+        with self._mu:
+            self.epochs.append(args[-4])
+            self.walks.append("row-tiled")
+        return 0
+
+    def bsr_megakernel_row_tiled_gated_launch(self, *args):
+        with self._mu:
+            self.epochs.append(args[-4])
+            self.walks.append("row-tiled, gated")
         return 0
 
     def bsr_matmul_launch(self, *args):
@@ -536,3 +551,192 @@ def test_cuda_bsr_matmul_ragged_blocks_match_plain(cuda_device, sizes, block,
     y_ref = K.bsr_matmul_plain(x, sch, bias, act)
     assert err(y.float().cpu(), y_ref.float().cpu()) < \
         {"f32": 1e-4, "bf16": 3e-2}[xdt]
+
+
+# --------------------------------------------------------------------------- #
+# the megakernel's row-tiled route (large batches)
+# --------------------------------------------------------------------------- #
+
+# the benchmark's two nets (bench/configs): the BERT-large FFNN and the
+# paper's five 512-wide layers, both at density 0.1
+ROW_NETS = {"bert": ((1024, 4096, 1024), 128), "mlp": ((512,) * 5, 64)}
+
+
+def row_net(kind, wdt="f32", device="cpu", dead_hidden=False):
+    """A flat schedule of one of ``ROW_NETS``, with weights and biases of
+    N(0, 0.03^2); ``dead_hidden`` sets every other hidden output tile's
+    bias to -10, so that relu kills it."""
+    from repro_torch.sparse import prune_dense_stack
+
+    sizes, block = ROW_NETS[kind]
+    rng = np.random.default_rng(0)
+    ws = [rng.standard_normal((a, b)).astype(np.float32) * 0.03
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    bs = [rng.standard_normal(b).astype(np.float32) * 0.03
+          for b in sizes[1:]]
+    if dead_hidden:
+        for b in bs[:-1]:
+            b.reshape(-1, block)[::2] = -10.0
+    layers = prune_dense_stack(ws, bs, density=0.1, block_m=block,
+                               block_n=block)
+    schs = [tops.compile_schedule(l, np.lexsort((l.rows, l.cols)), wdt,
+                                  device=device) for l in layers]
+    return tops.compile_flat_schedule(layers, schs)
+
+
+def row_crossover(flat):
+    """The least batch that takes the row-tiled walk."""
+    return next(B for B in range(1, 1 << 13) if K.row_tiled(B, flat))
+
+
+@pytest.mark.parametrize("B", (1, 5, 32, 4096))
+@pytest.mark.parametrize("kind", sorted(ROW_NETS))
+def test_row_tiled_route_rule(kind, B):
+    """Serving batches take the split-K walk and 4,096-row calls the
+    row-tiled one, whose scratch holds the hidden buffer and no partials;
+    the deal lists each layer's runs once, longest first."""
+    flat = row_net(kind)
+    rows = K.row_tiled(B, flat)
+    assert rows == (B > 32)
+    hidden = 2 * flat.hidden_tiles * B * flat.block
+    parts = flat.split.n_parts * B * flat.block
+    assert K.megakernel_scratch_floats(B, flat, rows) == \
+        hidden + (0 if rows else parts)
+    runs = flat.row_runs
+    run_ptr = flat.run_ptr.numpy()
+    np.testing.assert_array_equal(flat.row_order.numpy(), runs.order)
+    for k, (s, e) in enumerate(flat.segments):
+        layer = runs.order[runs.first[k]:runs.first[k + 1]]
+        assert sorted(layer) == list(range(runs.first[k], runs.first[k + 1]))
+        assert run_ptr[runs.first[k]] == s and \
+            run_ptr[runs.first[k + 1]] == e
+        steps = run_ptr[layer + 1] - run_ptr[layer]
+        assert list(steps) == sorted(steps, reverse=True)
+
+
+def row_deal(n_items, grid):
+    """The items each CTA of ``grid`` takes, as the row-tiled walk deals
+    them: forward in even rounds, backward in odd ones."""
+    deal = [[] for _ in range(grid)]
+    for i in range(n_items):
+        rnd, j = divmod(i, grid)
+        deal[j if rnd % 2 == 0 else grid - 1 - j].append(i)
+    return deal
+
+
+@pytest.mark.parametrize("B", (1025, 4096))
+@pytest.mark.parametrize("kind", sorted(ROW_NETS))
+def test_row_tiled_deal_covers_every_item_once(kind, B):
+    """Every (run, row tile) of every layer is one CTA's, each CTA's items
+    come longest first, and the busiest CTA is within one longest item of
+    the mean (2 CTAs on each of the H100's 132 SMs)."""
+    flat = row_net(kind)
+    nt = -(-B // K._ROW_BM)
+    runs = flat.row_runs
+    run_ptr = flat.run_ptr.numpy()
+    n_items = [(b - a) * nt for a, b in zip(runs.first[:-1],
+                                            runs.first[1:])]
+    grid = min(2 * 132, max(n_items))
+    for k in range(flat.n_layers):
+        deal = row_deal(n_items[k], grid)
+        seen = sorted(i for items in deal for i in items)
+        assert seen == list(range(n_items[k]))
+        item_run = runs.order[runs.first[k] + np.arange(n_items[k]) // nt]
+        assert len({(int(r), i % nt) for i, r in enumerate(item_run)}) == \
+            n_items[k]
+        cost = run_ptr[item_run + 1] - run_ptr[item_run]
+        for mine in deal:
+            assert list(cost[mine]) == sorted(cost[mine], reverse=True)
+        busiest = max(cost[mine].sum() for mine in deal)
+        assert busiest <= cost.sum() / grid + cost.max()
+
+
+def test_row_tiled_launch_bookkeeping(monkeypatch):
+    """The wrapper on either walk (a fake library stands in for the card):
+    a row-tiled launch goes to its own entry (gated or not) with a scratch
+    sized without partials, leaves the arrival counters alone, and counts
+    in ``row_tiled_launches`` beside ``launches`` or ``gated_launches``."""
+    flat = row_net("mlp")
+    lib = FakeLib()
+    sized = []
+    scratch = K.megakernel_scratch_floats
+
+    def sizing(B, flat, rows):
+        sized.append((B, rows))
+        return scratch(B, flat, rows)
+
+    monkeypatch.setattr(K._build, "load", lambda: lib)
+    monkeypatch.setattr(K, "_stream", lambda: 0)
+    monkeypatch.setattr(K, "megakernel_scratch_floats", sizing)
+    K.reset_launches()
+    arrivals = flat.arrivals
+    occ0 = torch.ones(8, dtype=torch.int32)
+    for B, gate in ((32, False), (4096, False), (4096, True)):
+        x = torch.zeros((B, 512))
+        occ = torch.empty((3, 8), dtype=torch.int32) if gate else None
+        K._launch_megakernel(x, flat, 0, 0, occ0 if gate else None, occ,
+                             torch.empty((B, 512)))
+    assert lib.walks == ["split-K", "row-tiled", "row-tiled, gated"]
+    assert lib.epochs == [0, 0, 1]
+    assert sized == [(32, False), (4096, True), (4096, True)]
+    assert flat.arrivals is arrivals
+    assert (K.bsr_megakernel.launches, K.bsr_megakernel.row_tiled_launches,
+            K.bsr_megakernel.gated_launches) == (2, 2, 1)
+    K.reset_launches()
+    assert K.bsr_megakernel.row_tiled_launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt,xdt", (("f32", "f32"), ("bf16", "f32"),
+                                     ("fp8", "f32"), ("f32", "bf16")))
+@pytest.mark.parametrize("kind", sorted(ROW_NETS))
+def test_cuda_row_tiled_megakernel_matches_plain(cuda_device, kind, wdt, xdt):
+    """The row-tiled walk on the card at the crossover, one row past it and
+    4,096 rows, against the plain version; the batch below the crossover
+    takes the split-K walk.  The arrival counters stay zero."""
+    flat = row_net(kind, wdt, cuda_device)
+    cross = row_crossover(flat)
+    n_in = ROW_NETS[kind][0][0]
+    gen = torch.Generator().manual_seed(0)
+    for B in (cross - 1, cross, cross + 1, 4096):
+        x = torch.randn((B, n_in), generator=gen).to(cuda_device)
+        x = x.to(torch.bfloat16 if xdt == "bf16" else torch.float32)
+        K.reset_launches()
+        y = K.bsr_megakernel(x, flat, "gelu", "none")
+        y_ref = K.bsr_megakernel_plain(x, flat, "gelu", "none")
+        assert y.dtype == x.dtype
+        assert err(y.float().cpu(), y_ref.float().cpu()) < \
+            {"f32": 1e-4, "bf16": 3e-2}[xdt]
+        assert (K.bsr_megakernel.launches,
+                K.bsr_megakernel.row_tiled_launches) == (1, int(B >= cross))
+        assert not flat.arrivals.any()
+    K.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(ROW_NETS))
+def test_cuda_row_tiled_gated_bit_equal(cuda_device, kind):
+    """The gated row-tiled walk at 4,096 rows, half of x's input tiles and
+    half of the hidden tiles dead: output bit-equal to the ungated walk's,
+    occupancy equal to the plain version's, one launch of each on the
+    row-tiled walk."""
+    from repro_torch.engine import tile_occupancy
+
+    flat = row_net(kind, "f32", cuda_device, dead_hidden=True)
+    (n_in, *_), block = ROW_NETS[kind]
+    x = torch.randn((4096, n_in), generator=torch.Generator().manual_seed(1))
+    x.reshape(4096, -1, block)[:, ::2] = 0.0
+    x = x.to(cuda_device)
+    occ0 = tile_occupancy(x, block, n_in // block)
+    K.reset_launches()
+    y, occ = K.bsr_megakernel(x, flat, "relu", "none", gate=True, occ0=occ0)
+    y_ref, occ_ref = K.bsr_megakernel_plain(x, flat, "relu", "none",
+                                            gate=True, occ0=occ0)
+    assert torch.equal(occ.cpu(), occ_ref.cpu())
+    assert (occ == 0).any() and (occ > 0).any()
+    assert torch.equal(y, K.bsr_megakernel(x, flat, "relu", "none"))
+    assert err(y.cpu(), y_ref.cpu()) < 1e-4
+    assert (K.bsr_megakernel.gated_launches, K.bsr_megakernel.launches,
+            K.bsr_megakernel.row_tiled_launches) == (1, 1, 2)
+    assert not flat.arrivals.any()
+    K.reset_launches()
