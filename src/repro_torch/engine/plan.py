@@ -305,7 +305,7 @@ class ExecutionPlan:
 
         While tracing is active: ``plan.input`` (the copy to the device, one
         host synchronisation counted for a host input copied to the card)
-        and ``plan.launch`` (scratch allocation and the launches)."""
+        and ``plan.launch`` (the output's allocation and the launches)."""
         with _trace.span("plan.input"):
             to_card = self.device.type == "cuda" and not (
                 isinstance(x, torch.Tensor) and x.is_cuda)

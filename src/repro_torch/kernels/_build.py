@@ -34,27 +34,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ROW_TILED = ([_I] * 2 + [_P] * 14 + [_I] * 8
-              + [ctypes.c_uint, ctypes.POINTER(_I), _P, ctypes.POINTER(_I)])
 _SIGNATURES = {
     # x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, step_run, part_off,
     # bias, scales, partial, arrivals, out, B, n_in, n_out, bm, bn, n_steps,
     # k_slice, n_slices, vec, act, stream
     "bsr_matmul_launch": [_I, _I] + [_P] * 12 + [_I] * 10 + [_P],
-    # x_dtype, w_dtype, vec, x, blocks, rows, cols, run_ptr, step_run,
-    # part_off, bias_idx, bias_tiles, scales, occ0, slots, occ, hidden,
-    # partial, arrivals, out, B, n_in, n_out, bs, n_layers, hidden_tiles,
-    # k_slice, n_slices, max_layer_steps, act, final_act, epoch, seg (host
-    # int[n_layers + 1]), stream, grid (int*, out)
-    "bsr_megakernel_launch": [_I] * 3 + [_P] * 17 + [_I] * 11
-                             + [ctypes.c_uint, ctypes.POINTER(_I), _P,
-                                ctypes.POINTER(_I)],
-    # both: x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, run_order,
-    # bias_idx, bias_tiles, scales, occ0, slots, occ, hidden, out, B, n_in,
-    # n_out, bs, n_layers, hidden_tiles, act, final_act, epoch, run_seg
-    # (host int[n_layers + 1]), stream, grid (int*, out)
-    "bsr_megakernel_row_tiled_launch": _ROW_TILED,
-    "bsr_megakernel_row_tiled_gated_launch": _ROW_TILED,
+    # block (out), capacity, row_tiled, x_dtype, w_dtype, vec, blocks, rows,
+    # cols, run_ptr, step_run, part_off, run_order, bias_idx, bias_tiles,
+    # scales, n_in, n_out, bs, n_layers, hidden_tiles, k_slice, n_slices,
+    # max_layer_steps, act, final_act, seg (host int[n_layers + 1])
+    "bsr_megakernel_prepare": [_P, ctypes.c_size_t] + [_I] * 4 + [_P] * 10
+                              + [_I] * 10 + [ctypes.POINTER(_I)],
+    # block, x, out, scratch, B, stream, arrivals, occ0, slots, occ, epoch;
+    # returns the grid size or minus the CUDA error
+    "bsr_megakernel_prepared_launch": [_P] * 4 + [_I] + [_P] * 5
+                                      + [ctypes.c_uint],
     # dtype, x, w_up, w_down, out, scratch, E, C, d, f, rows, stages,
     # f_chunk, route, act, stream
     "moe_ffn_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P],

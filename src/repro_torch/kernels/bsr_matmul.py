@@ -17,8 +17,19 @@ the batch and the schedule alone, and ``row_runs`` is the order in which it
 deals out each layer's runs, built once per flat schedule.
 
 Each wrapper dispatches on the device of ``x``: a CUDA tensor launches the
-kernel on ``torch.cuda.current_stream()`` (or raises — there is no fallback),
-a CPU tensor runs the plain PyTorch version beside it.
+kernel on the current stream of its device (or raises — there is no
+fallback), a CPU tensor runs the plain PyTorch version beside it.
+
+The megakernel's launch is prepared once per flat schedule: its first
+launch with a given walk, x dtype, width and pair of epilogues checks the
+schedule's tensors and packs every argument that later launches share into
+a launch block (``bsr_megakernel_prepare``, kept in
+``FlatSchedule.launch_blocks``; while tracing is active each packing adds 1
+to the ``mega.pack`` counter of ``obs.trace``), and its f32 scratch stays
+with the schedule (``FlatSchedule.scratch``).  A call then checks only what
+its caller can change (x's device, dtype, width, rank and layout, and
+``occ0``) and passes the launch its own values
+(``bsr_megakernel_prepared_launch``).
 
 The wrappers are safe to call from several threads.  A schedule keeps device
 state that its launches share — the split-K arrival counters, which each
@@ -51,7 +62,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import threading
 from typing import Callable, Optional, Tuple, Union
 
@@ -221,6 +231,7 @@ class RowRuns:
 
     order: np.ndarray          # int32 [n_runs]
     first: Tuple[int, ...]     # [n_layers + 1]
+    fewest: int                # runs of the layer with the fewest
 
 
 def row_runs(run_ptr, segments) -> RowRuns:
@@ -233,7 +244,8 @@ def row_runs(run_ptr, segments) -> RowRuns:
     order = [np.arange(a, b)[np.argsort(-steps[a:b], kind="stable")]
              for a, b in zip(first[:-1], first[1:])]
     return RowRuns(order=np.concatenate(order).astype(np.int32),
-                   first=tuple(first))
+                   first=tuple(first),
+                   fewest=min(b - a for a, b in zip(first[:-1], first[1:])))
 
 
 def row_tiled(B: int, flat) -> bool:
@@ -249,8 +261,7 @@ def row_tiled(B: int, flat) -> bool:
     runs = flat.row_runs
     if runs is None or flat.block not in _ROW_BLOCKS or B <= _ROWS_PER_CTA:
         return False
-    fewest = min(b - a for a, b in zip(runs.first[:-1], runs.first[1:]))
-    return fewest * -(-B // _ROW_BM) >= _ROW_MIN_ITEMS
+    return runs.fewest * -(-B // _ROW_BM) >= _ROW_MIN_ITEMS
 
 
 def megakernel_scratch_floats(B: int, flat, rows: bool) -> int:
@@ -268,19 +279,31 @@ def _dequant(blocks: torch.Tensor, scales: Optional[torch.Tensor]):
 
 def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
     """Validate what the kernel takes; raise on anything else."""
+    _check_x(name, x)
+    _check_tensors(name, x.device, tensors)
+
+
+def _check_x(name: str, x: torch.Tensor) -> None:
+    """Validate x's device and dtype."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must lie on the CPU or a CUDA device, "
                          f"got {x.device}")
     if x.dtype not in _X_CODES:
         raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+
+
+def _check_tensors(name: str, device: torch.device, tensors: dict) -> None:
+    """Validate the device, layout and dtype of each of ``tensors`` (None
+    entries skipped); ``blocks``, when given, holds the weights."""
     for key, t in tensors.items():
         if t is None:
             continue
-        if t.device != x.device:
-            raise ValueError(f"{name}: {key} is on {t.device}, x on {x.device}")
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    for key in ("rows", "cols", "run_ptr", "bias_idx", "occ0"):
+    for key in ("rows", "cols", "run_ptr", "bias_idx", "occ0", "split_index",
+                "row_order"):
         t = tensors.get(key)
         if t is not None and t.dtype != torch.int32:
             raise ValueError(f"{name}: {key} must be int32, got {t.dtype}")
@@ -288,19 +311,22 @@ def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
         t = tensors.get(key)
         if t is not None and t.dtype != torch.float32:
             raise ValueError(f"{name}: {key} must be float32, got {t.dtype}")
-    if tensors["blocks"].dtype not in _W_CODES:
+    blocks = tensors.get("blocks")
+    if blocks is not None and blocks.dtype not in _W_CODES:
         raise ValueError(f"{name}: blocks must be float32, bfloat16 or "
-                         f"float8_e4m3fn, got {tensors['blocks'].dtype}")
+                         f"float8_e4m3fn, got {blocks.dtype}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(index: int) -> int:
+    """The raw handle of CUDA device ``index``'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def _schedule_stream(schedule, name: str) -> int:
-    """The current stream, which must be the one the schedule's launches
-    use (lock held): its shared device state is ordered by that stream."""
-    stream = _stream()
+def _schedule_stream(schedule, name: str, index: int) -> int:
+    """The current stream of CUDA device ``index``, which must be the one
+    the schedule's launches use (lock held): its shared device state is
+    ordered by that stream."""
+    stream = _stream(index)
     if schedule.stream is None:
         schedule.stream = stream
     elif schedule.stream != stream:
@@ -404,7 +430,7 @@ def _launch_matmul(x, schedule, bias, act: int, out) -> None:
                           device=x.device)
     scales = schedule.scales
     with schedule.lock:
-        stream = _schedule_stream(schedule, "bsr_matmul")
+        stream = _schedule_stream(schedule, "bsr_matmul", x.get_device())
         if schedule.arrivals is None or \
                 schedule.arrivals.numel() < n_runs * chunks:
             # zero between launches: the last CTA of each run resets it
@@ -496,12 +522,12 @@ def bsr_megakernel(x: torch.Tensor, flat,
     layer's.  ``x`` [B, n_in] is float32 or bfloat16 (any B); the output is
     [B, grid_out_final * block] in ``x.dtype``.  On the card the f32 scratch
     (``megakernel_scratch_floats``: the hidden ping-pong buffer and, on the
-    split-K walk, the partials) is allocated here with ``torch.empty``.
-    ``row_tiled(B, flat)`` picks the walk; the row-tiled one reads ``x``
-    with 16-byte copies, so a view that is not 16-byte aligned takes the
-    split-K walk.  The flat schedule's arrival counters and occupancy
-    slots are shared by its launches, which therefore go to one stream,
-    under ``flat.lock``.
+    split-K walk, the partials) is the flat schedule's, grown to the
+    largest call.  ``row_tiled(B, flat)`` picks the walk; the row-tiled one
+    reads ``x`` with 16-byte copies, so a view that is not 16-byte aligned
+    takes the split-K walk.  The flat schedule's scratch, arrival counters
+    and occupancy slots are shared by its launches, which therefore go to
+    one stream, under ``flat.lock``.
 
     With ``gate=True`` the call takes ``occ0`` (int32 [grid_in_0], the
     live-row counts of x's input tiles, on x's device) and returns
@@ -520,62 +546,76 @@ def bsr_megakernel(x: torch.Tensor, flat,
     if gate and (occ0 is None or tuple(occ0.shape) != (grid_in0,)):
         raise ValueError(f"bsr_megakernel: gate=True needs occ0 of shape "
                          f"[{grid_in0}]")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return bsr_megakernel_plain(x, flat, activation, final_activation,
                                     gate, occ0)
     act = activation_code(activation)
     fact = activation_code(final_activation)
-    _check_cuda("bsr_megakernel", x, dict(
-        blocks=flat.blocks, rows=flat.rows, cols=flat.cols,
-        run_ptr=flat.run_ptr, bias_idx=flat.bias_idx,
-        bias_tiles=flat.bias_tiles, scales=flat.scales, x=x,
-        occ0=occ0 if gate else None))
-    split, index = flat.split, flat.split_index
-    if split is None or index is None or index.device != x.device:
-        raise ValueError("bsr_megakernel: the flat schedule has no split "
-                         f"plan on {x.device}; compile it with "
-                         "compile_flat_schedule")
-    if flat.n_layers > _MEGA_MAX_LAYERS:
-        raise ValueError(f"bsr_megakernel: {flat.n_layers} layers; the "
-                         f"kernel takes at most {_MEGA_MAX_LAYERS} (compile "
-                         "with fuse=False for deeper nets)")
-    n_out = flat.grid_out_final * bs
+    # what the caller can change; the schedule's own tensors are checked
+    # once, when a launch block is packed
+    if not x.is_cuda or x.dtype not in _X_CODES:
+        _check_x("bsr_megakernel", x)
+    if not x.is_contiguous():
+        raise ValueError("bsr_megakernel: x must be contiguous")
+    if gate:
+        _check_tensors("bsr_megakernel", x.device, dict(occ0=occ0))
     n_occ = max(1, flat.n_layers - 1)
-    out = torch.empty((B, n_out), dtype=x.dtype, device=x.device)
+    out = x.new_empty((B, flat.grid_out_final * bs))
     if B == 0:
-        occ = torch.zeros((n_occ, flat.hidden_tiles), dtype=torch.int32,
-                          device=x.device)
+        _check_flat(x.device, flat)
+        occ = x.new_zeros((n_occ, flat.hidden_tiles), dtype=torch.int32)
         return (out, occ) if gate else out
-    occ = torch.empty((n_occ, flat.hidden_tiles), dtype=torch.int32,
-                      device=x.device) if gate else None
+    occ = x.new_empty((n_occ, flat.hidden_tiles), dtype=torch.int32) \
+        if gate else None
     _launch_megakernel(x, flat, act, fact, occ0 if gate else None, occ, out)
     return (out, occ) if gate else out
 
 
+def _check_flat(device: torch.device, flat) -> None:
+    """Validate what the megakernel takes of a flat schedule on
+    ``device``; raise on anything else."""
+    name = "bsr_megakernel"
+    _check_tensors(name, device, dict(
+        blocks=flat.blocks, rows=flat.rows, cols=flat.cols,
+        run_ptr=flat.run_ptr, bias_idx=flat.bias_idx,
+        bias_tiles=flat.bias_tiles, scales=flat.scales,
+        row_order=flat.row_order))
+    split, index = flat.split, flat.split_index
+    if split is None or index is None or index.device != device:
+        raise ValueError("bsr_megakernel: the flat schedule has no split "
+                         f"plan on {device}; compile it with "
+                         "compile_flat_schedule")
+    _check_tensors(name, device, dict(split_index=index))
+    if flat.n_layers > _MEGA_MAX_LAYERS:
+        raise ValueError(f"bsr_megakernel: {flat.n_layers} layers; the "
+                         f"kernel takes at most {_MEGA_MAX_LAYERS} (compile "
+                         "with fuse=False for deeper nets)")
+
+
 def _launch_megakernel(x, flat, act: int, fact: int, occ0, occ, out) -> None:
-    """``bsr_megakernel``'s launch on checked tensors, with its bookkeeping;
+    """``bsr_megakernel``'s launch on checked inputs, with its bookkeeping;
     gated when ``occ`` is given."""
     B, n_in = x.shape
-    bs = flat.block
     gate = occ is not None
-    split, index = flat.split, flat.split_index
-    chunks = -(-B // _ROWS_PER_CTA)
-    n_runs = flat.run_ptr.numel() - 1
     rows = row_tiled(B, flat) and x.data_ptr() % 16 == 0
-    # one f32 scratch: the hidden ping-pong buffer, then any partials
-    n_hidden = 2 * flat.hidden_tiles * B * bs
-    scratch = torch.empty(megakernel_scratch_floats(B, flat, rows),
-                          dtype=torch.float32, device=x.device)
-    scales = flat.scales
-    grid = ctypes.c_int(0)
+    key = (rows, x.dtype, n_in, act, fact)
+    packed = flat.launch_blocks.get(key)
+    if packed is None or packed.device != x.device:
+        packed = _pack(flat, key, x.device)
+    chunks = -(-B // _ROWS_PER_CTA)
+    need = megakernel_scratch_floats(B, flat, rows)
     with flat.lock:
-        stream = _schedule_stream(flat, "bsr_megakernel")
-        if not rows and (flat.arrivals is None or
-                         flat.arrivals.numel() < n_runs * chunks):
-            # zero between launches: the last CTA of each run resets it
-            flat.arrivals = torch.zeros(n_runs * chunks, dtype=torch.int32,
-                                        device=x.device)
-        epoch = 0
+        stream = _schedule_stream(flat, "bsr_megakernel", x.get_device())
+        arrivals = None
+        if not rows:
+            if flat.arrivals is None or \
+                    flat.arrivals.numel() < packed.runs * chunks:
+                # zero between launches: the last CTA of each run resets it
+                flat.arrivals = torch.zeros(packed.runs * chunks,
+                                            dtype=torch.int32,
+                                            device=x.device)
+            arrivals = flat.arrivals.data_ptr()
+        epoch, slots = 0, None
         if gate:
             # one slot per (hidden layer, tile, row chunk), zeroed anew when
             # the chunk count changes, so that each keeps one meaning; the
@@ -584,62 +624,91 @@ def _launch_megakernel(x, flat, act: int, fact: int, occ0, occ, out) -> None:
             if flat.slots is None or flat.slots.numel() != n_slots:
                 flat.slots = torch.zeros(n_slots, dtype=torch.int64,
                                          device=x.device)
+            slots = flat.slots.data_ptr()
             epoch = next_epoch(flat)
-        if rows:
-            lib = _build.load()
-            launch = lib.bsr_megakernel_row_tiled_gated_launch if gate \
-                else lib.bsr_megakernel_row_tiled_launch
-            rc = launch(
-                _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype],
-                x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
-                flat.cols.data_ptr(), flat.run_ptr.data_ptr(),
-                flat.row_order.data_ptr(), flat.bias_idx.data_ptr(),
-                flat.bias_tiles.data_ptr(),
-                None if scales is None else scales.data_ptr(),
-                occ0.data_ptr() if gate else None,
-                flat.slots.data_ptr() if gate else None,
-                occ.data_ptr() if gate else None, scratch.data_ptr(),
-                out.data_ptr(), B, n_in, out.shape[1], bs, flat.n_layers,
-                flat.hidden_tiles, act, fact, epoch,
-                _int_table(flat.row_runs.first), stream, ctypes.byref(grid))
-        else:
-            rc = _build.load().bsr_megakernel_launch(
-                _X_CODES[x.dtype], _W_CODES[flat.blocks.dtype], split.vec,
-                x.data_ptr(), flat.blocks.data_ptr(), flat.rows.data_ptr(),
-                flat.cols.data_ptr(), flat.run_ptr.data_ptr(),
-                index[0].data_ptr(), index[1].data_ptr(),
-                flat.bias_idx.data_ptr(), flat.bias_tiles.data_ptr(),
-                None if scales is None else scales.data_ptr(),
-                occ0.data_ptr() if gate else None,
-                flat.slots.data_ptr() if gate else None,
-                occ.data_ptr() if gate else None,
-                scratch.data_ptr(), scratch.data_ptr() + 4 * n_hidden,
-                flat.arrivals.data_ptr(), out.data_ptr(), B, n_in,
-                out.shape[1], bs, flat.n_layers, flat.hidden_tiles,
-                split.k_slice, split.n_slices, flat.max_layer_steps, act,
-                fact, epoch, _segment_table(flat.segments), stream,
-                ctypes.byref(grid))
-    if rc:
+        if flat.scratch is None or flat.scratch.numel() < need:
+            # launches of the schedule are ordered on one stream, so each
+            # reuses the scratch after the one before it
+            flat.scratch = torch.empty(need, dtype=torch.float32,
+                                       device=x.device)
+        grid = packed.launch(
+            packed.address, x.data_ptr(), out.data_ptr(),
+            flat.scratch.data_ptr(), B, stream, arrivals,
+            occ0.data_ptr() if gate else None, slots,
+            occ.data_ptr() if gate else None, epoch)
+        if grid > 0:
+            with _COUNTS:
+                bsr_megakernel.grid = grid
+                if gate:
+                    bsr_megakernel.gated_launches += 1
+                else:
+                    bsr_megakernel.launches += 1
+                if rows:
+                    bsr_megakernel.row_tiled_launches += 1
+    if grid <= 0:
         raise RuntimeError(
-            f"bsr_megakernel: kernel launch failed, CUDA error {rc}")
-    bsr_megakernel.grid = grid.value
-    count_launch(bsr_megakernel, "gated_launches" if gate else "launches")
+            f"bsr_megakernel: kernel launch failed, CUDA error {-grid}")
     if rows:
-        count_launch(bsr_megakernel, "row_tiled_launches")
         _trace.count("mega.row_tiled")
 
 
-@functools.lru_cache(maxsize=64)
-def _segment_table(segments):
-    """A flat schedule's layer starts and step count, as a C int array."""
-    starts = [s for s, _ in segments] + [segments[-1][1]]
-    return (ctypes.c_int * len(starts))(*starts)
+#: bytes the caller holds for one launch block (``MegaBlock`` in
+#: csrc/bsr_kernels.cu, under 300)
+_MEGA_BLOCK_BYTES = 512
 
 
-@functools.lru_cache(maxsize=256)
-def _int_table(values):
-    """A tuple of ints as a C int array."""
-    return (ctypes.c_int * len(values))(*values)
+@dataclasses.dataclass(frozen=True)
+class _Packed:
+    """One packed launch block of a flat schedule and what its calls need
+    beside it: the device it was packed for, the block's address (its
+    memory held by ``block``), the launch entry and the run count."""
+
+    device: torch.device
+    address: int
+    block: ctypes.Array
+    launch: Callable
+    runs: int
+
+
+def _pack(flat, key, device: torch.device) -> _Packed:
+    """Check ``flat`` on ``device`` and pack its launch block for ``key``
+    (walk, x dtype, width, epilogue codes) into ``flat.launch_blocks``."""
+    rows, x_dtype, n_in, act, fact = key
+    with flat.lock:
+        packed = flat.launch_blocks.get(key)
+        if packed is not None and packed.device == device:
+            return packed
+        _check_flat(device, flat)
+        split, index, lib = flat.split, flat.split_index, _build.load()
+        if rows:
+            seg = flat.row_runs.first
+        else:
+            seg = [s for s, _ in flat.segments] + [flat.segments[-1][1]]
+        block = ctypes.create_string_buffer(_MEGA_BLOCK_BYTES)
+        scales, order = flat.scales, flat.row_order
+        rc = lib.bsr_megakernel_prepare(
+            block, _MEGA_BLOCK_BYTES, int(rows), _X_CODES[x_dtype],
+            _W_CODES[flat.blocks.dtype], split.vec, flat.blocks.data_ptr(),
+            flat.rows.data_ptr(), flat.cols.data_ptr(),
+            flat.run_ptr.data_ptr(), index[0].data_ptr(),
+            index[1].data_ptr(), None if order is None else order.data_ptr(),
+            flat.bias_idx.data_ptr(), flat.bias_tiles.data_ptr(),
+            None if scales is None else scales.data_ptr(), n_in,
+            flat.grid_out_final * flat.block, flat.block, flat.n_layers,
+            flat.hidden_tiles, split.k_slice, split.n_slices,
+            flat.max_layer_steps, act, fact,
+            (ctypes.c_int * len(seg))(*seg))
+        if rc:
+            raise RuntimeError(f"bsr_megakernel: packing its launch failed, "
+                               f"CUDA error {rc}")
+        packed = _Packed(device, ctypes.addressof(block), block,
+                         lib.bsr_megakernel_prepared_launch,
+                         flat.run_ptr.numel() - 1)
+        flat.launch_blocks[key] = packed
+    _trace.count("mega.pack")
+    return packed
+
+
 bsr_megakernel.launches = 0
 bsr_megakernel.gated_launches = 0
 bsr_megakernel.row_tiled_launches = 0

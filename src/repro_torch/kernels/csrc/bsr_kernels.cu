@@ -500,3 +500,111 @@ extern "C" int bsr_megakernel_launch(
   return megakernel_dispatch<false>(x_dtype, w_dtype, vec != 1, p,
                                     max_layer_steps, s, grid);
 }
+
+// The prepared launch.  What a flat schedule's launches share (its tensors,
+// sizes, split-K constants, epilogues and layer table) is packed once per
+// schedule, walk, x dtype and width into a launch block, in memory the
+// caller owns and keeps (bsr_megakernel_prepare); each call then passes
+// only its own values (bsr_megakernel_prepared_launch): 11 arguments where
+// the walks' entries take 28 and 35, since the host pays for a ctypes call
+// by the argument.  A launch reads the block and never writes it, so
+// threads may share one.
+
+// bsr_row_tiled.cu, bsr_row_tiled_gated.cu (row_tile.cuh's
+// BSR_ROW_TILED_ARGS)
+extern "C" int bsr_megakernel_row_tiled_launch(
+    int x_dtype, int w_dtype, const void* x, const void* blocks,
+    const int* rows, const int* cols, const int* run_ptr,
+    const int* run_order, const int* bias_idx, const float* bias_tiles,
+    const float* scales, const int* occ0, void* slots, int* occ,
+    float* hidden, void* out, int B, int n_in, int n_out, int bs,
+    int n_layers, int hidden_tiles, int act, int final_act, unsigned epoch,
+    const int* run_seg, void* stream, int* grid);
+extern "C" int bsr_megakernel_row_tiled_gated_launch(
+    int x_dtype, int w_dtype, const void* x, const void* blocks,
+    const int* rows, const int* cols, const int* run_ptr,
+    const int* run_order, const int* bias_idx, const float* bias_tiles,
+    const float* scales, const int* occ0, void* slots, int* occ,
+    float* hidden, void* out, int B, int n_in, int n_out, int bs,
+    int n_layers, int hidden_tiles, int act, int final_act, unsigned epoch,
+    const int* run_seg, void* stream, int* grid);
+
+namespace {
+
+struct MegaBlock {
+  int row_tiled;  // the walk: 1 row-tiled, 0 split-K
+  int x_dtype, w_dtype, vec;
+  const void* blocks;
+  const int *rows, *cols, *run_ptr;
+  const int *step_run, *part_off;  // split-K
+  const int* run_order;            // row-tiled
+  const int* bias_idx;
+  const float *bias_tiles, *scales;
+  int n_in, n_out, bs, n_layers, hidden_tiles;
+  int k_slice, n_slices, max_layer_steps;  // split-K
+  int act, final_act;
+  // split-K: each layer's first flat step, then the step count (seg);
+  // row-tiled: each layer's first entry of run_order, then the run count
+  // (run_seg)
+  int seg[kMaxLayers + 1];
+};
+
+}  // namespace
+
+// Packs a launch block into `block` (`capacity` bytes, at least
+// sizeof(MegaBlock)): the arguments of bsr_megakernel_launch (row_tiled 0)
+// or of the row-tiled entries (row_tiled 1) that do not change between a
+// schedule's calls; the walk ignores the others (null or 0 there).  seg:
+// n_layers + 1 host ints, copied.  Returns 0 or cudaErrorInvalidValue.
+extern "C" int bsr_megakernel_prepare(
+    void* block, size_t capacity, int row_tiled, int x_dtype, int w_dtype,
+    int vec, const void* blocks, const int* rows, const int* cols,
+    const int* run_ptr, const int* step_run, const int* part_off,
+    const int* run_order, const int* bias_idx, const float* bias_tiles,
+    const float* scales, int n_in, int n_out, int bs, int n_layers,
+    int hidden_tiles, int k_slice, int n_slices, int max_layer_steps,
+    int act, int final_act, const int* seg) {
+  if (block == nullptr || capacity < sizeof(MegaBlock) || seg == nullptr ||
+      n_layers < 1 || n_layers > kMaxLayers)
+    return (int)cudaErrorInvalidValue;
+  MegaBlock b{row_tiled != 0, x_dtype,   w_dtype,   vec,        blocks,
+              rows,           cols,      run_ptr,   step_run,   part_off,
+              run_order,      bias_idx,  bias_tiles, scales,    n_in,
+              n_out,          bs,        n_layers,  hidden_tiles, k_slice,
+              n_slices,       max_layer_steps, act, final_act,  {}};
+  for (int k = 0; k <= n_layers; ++k) b.seg[k] = seg[k];
+  *static_cast<MegaBlock*>(block) = b;
+  return 0;
+}
+
+// One launch from a packed block, with this call's values: x, out, the
+// f32 scratch (the hidden ping-pong buffer [2, hidden_tiles, B, bs], then
+// on the split-K walk the partials), B, the stream, the split-K walk's
+// arrival counters, and, gated (occ not null), occ0, slots, occ and epoch,
+// as bsr_megakernel_launch takes them.  Returns the cooperative grid size
+// (at least 1), or minus the CUDA error.
+extern "C" int bsr_megakernel_prepared_launch(
+    const void* block, const void* x, void* out, float* scratch, int B,
+    void* stream, int* arrivals, const int* occ0, void* slots, int* occ,
+    unsigned epoch) {
+  const MegaBlock& b = *static_cast<const MegaBlock*>(block);
+  int grid = 0;
+  int rc;
+  if (b.row_tiled) {
+    rc = (occ != nullptr ? bsr_megakernel_row_tiled_gated_launch
+                         : bsr_megakernel_row_tiled_launch)(
+        b.x_dtype, b.w_dtype, x, b.blocks, b.rows, b.cols, b.run_ptr,
+        b.run_order, b.bias_idx, b.bias_tiles, b.scales, occ0, slots, occ,
+        scratch, out, B, b.n_in, b.n_out, b.bs, b.n_layers, b.hidden_tiles,
+        b.act, b.final_act, epoch, b.seg, stream, &grid);
+  } else {
+    float* partial = scratch + (size_t)2 * b.hidden_tiles * B * b.bs;
+    rc = bsr_megakernel_launch(
+        b.x_dtype, b.w_dtype, b.vec, x, b.blocks, b.rows, b.cols, b.run_ptr,
+        b.step_run, b.part_off, b.bias_idx, b.bias_tiles, b.scales, occ0,
+        slots, occ, scratch, partial, arrivals, out, B, b.n_in, b.n_out,
+        b.bs, b.n_layers, b.hidden_tiles, b.k_slice, b.n_slices,
+        b.max_layer_steps, b.act, b.final_act, epoch, b.seg, stream, &grid);
+  }
+  return rc != 0 ? -rc : grid;
+}

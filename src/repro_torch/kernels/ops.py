@@ -232,7 +232,12 @@ class FlatSchedule:
     runs (``bsr_matmul.RowRuns``), ``row_order`` its run order on the
     device.  ``slots`` and ``epoch`` are the gated launch's
     per-(layer, tile, row chunk) live-row counts, each tagged with the
-    launch that wrote it.  ``lock`` guards all three across threads.
+    launch that wrote it.  ``launch_blocks`` holds the megakernel's packed
+    launch blocks (one per walk, x dtype, width and epilogues: what its
+    launches share, built at the first of them) and ``scratch`` its f32
+    scratch, grown to the largest call and reused by every later one.
+    ``lock`` guards all of these across threads; ``dataclasses.replace``
+    gives the copy blocks and scratch of its own.
 
     ``segments[k] = (start, end)`` delimits layer ``k``'s steps; the ``torch``
     lowering consumes exactly these flat arrays one segment at a time, so all
@@ -271,12 +276,17 @@ class FlatSchedule:
     # changes) and its launch count
     slots: Optional[torch.Tensor] = None
     epoch: int = 0
-    # held by the wrapper around the (re)allocation of ``arrivals`` and
-    # ``slots``, the epoch bump and the launch; every launch goes to
-    # ``stream``, the CUDA stream of the first
+    # held by the wrapper around the (re)allocation of ``arrivals``,
+    # ``slots`` and ``scratch``, the packing of a launch block, the epoch
+    # bump and the launch; every launch goes to ``stream``, the CUDA stream
+    # of the first
     lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
     stream: Optional[int] = None
+    launch_blocks: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+    scratch: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def nnz(self) -> int:

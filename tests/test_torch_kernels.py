@@ -13,6 +13,7 @@ output tolerance.
 Tests that need the card are marked ``cuda`` and skip without one.
 """
 
+import ctypes
 import dataclasses
 import sys
 import threading
@@ -403,32 +404,38 @@ def test_wrapper_rejects_non_cuda_non_cpu_tensor(make_stack):
 
 
 class FakeLib:
-    """Stands in for the built library: records each megakernel launch's
-    walk and epoch (the fourth argument from the end of either entry) and
-    succeeds."""
+    """Stands in for the built library: records the walk of each launch
+    block it packs (``packed``), and each megakernel launch's walk, epoch
+    and per-call pointers (scratch, arrivals, slots); every call
+    succeeds, a launch with a grid of 1."""
 
     def __init__(self):
+        self.packed = []
         self.epochs = []
         self.walks = []
+        self.calls = []
+        self._walk = {}
         self._mu = threading.Lock()
 
-    def bsr_megakernel_launch(self, *args):
+    def bsr_megakernel_prepare(self, block, capacity, row_tiled, *args):
         with self._mu:
-            self.epochs.append(args[-4])
-            self.walks.append("split-K")
+            walk = "row-tiled" if row_tiled else "split-K"
+            self._walk[ctypes.addressof(block)] = walk
+            self.packed.append(walk)
         return 0
 
-    def bsr_megakernel_row_tiled_launch(self, *args):
+    def bsr_megakernel_prepared_launch(self, block, x, out, scratch, B,
+                                       stream, arrivals, occ0, slots, occ,
+                                       epoch):
         with self._mu:
-            self.epochs.append(args[-4])
-            self.walks.append("row-tiled")
-        return 0
-
-    def bsr_megakernel_row_tiled_gated_launch(self, *args):
-        with self._mu:
-            self.epochs.append(args[-4])
-            self.walks.append("row-tiled, gated")
-        return 0
+            walk = self._walk[block]
+            if walk == "row-tiled" and occ is not None:
+                walk += ", gated"
+            self.epochs.append(epoch)
+            self.walks.append(walk)
+            self.calls.append(dict(B=B, scratch=scratch, arrivals=arrivals,
+                                   slots=slots))
+        return 1
 
     def bsr_matmul_launch(self, *args):
         return 0
@@ -444,7 +451,7 @@ def test_launch_bookkeeping_is_exact_under_threads(make_stack, monkeypatch):
     flat = tops.compile_flat_schedule(tls, schs)
     lib = FakeLib()
     monkeypatch.setattr(K._build, "load", lambda: lib)
-    monkeypatch.setattr(K, "_stream", lambda: 0)
+    monkeypatch.setattr(K, "_stream", lambda index: 0)
     x = torch.zeros((5, 64))
     occ0 = torch.zeros(2, dtype=torch.int32)
     bias = torch.from_numpy(tls[0].bias)
@@ -485,13 +492,17 @@ def test_launch_bookkeeping_is_exact_under_threads(make_stack, monkeypatch):
 def test_schedule_launches_stay_on_one_stream(make_stack, monkeypatch):
     tl = layers_from_numpy(make_stack(sizes=(64, 64), block=32))[0]
     sch = tops.compile_schedule(tl, np.lexsort((tl.rows, tl.cols)))
+    flat = tops.compile_flat_schedule([tl], [sch])
     monkeypatch.setattr(K._build, "load", lambda: FakeLib())
     x, bias = torch.zeros((2, 64)), torch.from_numpy(tl.bias)
-    monkeypatch.setattr(K, "_stream", lambda: 7)
+    monkeypatch.setattr(K, "_stream", lambda index: 7)
     K._launch_matmul(x, sch, bias, 0, torch.empty((2, 64)))
-    monkeypatch.setattr(K, "_stream", lambda: 8)
+    K._launch_megakernel(x, flat, 0, 0, None, None, torch.empty((2, 64)))
+    monkeypatch.setattr(K, "_stream", lambda index: 8)
     with pytest.raises(RuntimeError, match="stream 0x8"):
         K._launch_matmul(x, sch, bias, 0, torch.empty((2, 64)))
+    with pytest.raises(RuntimeError, match="stream 0x8"):    # packed already
+        K._launch_megakernel(x, flat, 0, 0, None, None, torch.empty((2, 64)))
     K.reset_launches()
 
 
@@ -666,7 +677,7 @@ def test_row_tiled_launch_bookkeeping(monkeypatch):
         return scratch(B, flat, rows)
 
     monkeypatch.setattr(K._build, "load", lambda: lib)
-    monkeypatch.setattr(K, "_stream", lambda: 0)
+    monkeypatch.setattr(K, "_stream", lambda index: 0)
     monkeypatch.setattr(K, "megakernel_scratch_floats", sizing)
     K.reset_launches()
     arrivals = flat.arrivals
@@ -684,6 +695,123 @@ def test_row_tiled_launch_bookkeeping(monkeypatch):
             K.bsr_megakernel.gated_launches) == (2, 2, 1)
     K.reset_launches()
     assert K.bsr_megakernel.row_tiled_launches == 0
+
+
+# the order of batches the prepared launch is run through: both walks,
+# row chunks grown and shrunk, the largest call first at 4,096 rows
+PREPARED_BATCHES = (1, 32, 33, 65, 4096, 33, 4096)
+
+
+def test_megakernel_packs_its_launch_once_per_walk(monkeypatch):
+    """The flat schedule's tensors are checked, and a launch block packed,
+    once per walk, not per call; ``mega.pack`` counts the packing in a
+    traced call and nothing while tracing is inactive.  A view of x that is
+    not 16-byte aligned takes the split-K walk at any B."""
+    from repro_torch.obs import trace
+    from repro_torch.obs.trace import Tracer
+
+    flat = row_net("mlp")
+    lib = FakeLib()
+    checked = []
+    check = K._check_flat
+
+    def counting_check(device, flat):
+        checked.append(device)
+        check(device, flat)
+
+    monkeypatch.setattr(K._build, "load", lambda: lib)
+    monkeypatch.setattr(K, "_stream", lambda index: 0)
+    monkeypatch.setattr(K, "_check_flat", counting_check)
+    occ0 = torch.ones(8, dtype=torch.int32)
+
+    def launch(B, gate, x=None):
+        x = torch.zeros((B, 512)) if x is None else x
+        occ = torch.empty((3, 8), dtype=torch.int32) if gate else None
+        K._launch_megakernel(x, flat, 2, 0, occ0 if gate else None, occ,
+                             torch.empty((B, 512)))
+
+    K.reset_launches()
+    before = trace.totals()["counters"].get("mega.pack", 0)
+    tracer = Tracer()
+    with tracer.span("first"):
+        launch(1, False)
+    (span,) = tracer.spans()
+    assert span.attrs["mega.pack"] == 1
+    for i, B in enumerate(PREPARED_BATCHES):
+        for gate in (i % 2 == 1, i % 2 == 0):
+            launch(B, gate)
+    assert trace.totals()["counters"].get("mega.pack", 0) == before + 1
+    assert lib.packed == ["split-K", "row-tiled"]
+    assert checked == [torch.device("cpu")] * 2
+    assert lib.walks[1:5] == ["split-K"] * 4           # B = 1, 32
+    assert lib.walks[-2:] == ["row-tiled", "row-tiled, gated"]
+    n = 1 + 2 * len(PREPARED_BATCHES)
+    assert K.bsr_megakernel.launches + K.bsr_megakernel.gated_launches == n
+    assert K.bsr_megakernel.row_tiled_launches == 6    # 65, 4096 twice
+    misaligned = torch.zeros(4096 * 512 + 1)[1:].view(4096, 512)
+    launch(4096, False, misaligned)
+    assert lib.walks[-1] == "split-K" and len(lib.packed) == 2
+    K.reset_launches()
+
+
+def test_megakernel_launch_follows_regrown_state(monkeypatch):
+    """Each call passes the kernel the flat schedule's arrival counters
+    and occupancy slots as they are at that call, after a larger B grew
+    the counters or a new chunk count made the slots anew; the scratch
+    grows to the largest call and serves every smaller one."""
+    flat = row_net("mlp")
+    lib = FakeLib()
+    monkeypatch.setattr(K._build, "load", lambda: lib)
+    monkeypatch.setattr(K, "_stream", lambda index: 0)
+    occ0 = torch.ones(8, dtype=torch.int32)
+    seen = []
+    for B in PREPARED_BATCHES:
+        x = torch.zeros((B, 512))
+        occ = torch.empty((3, 8), dtype=torch.int32)
+        K._launch_megakernel(x, flat, 2, 0, occ0, occ, torch.empty((B, 512)))
+        call = lib.calls[-1]
+        assert call["slots"] == flat.slots.data_ptr()
+        assert flat.slots.numel() == occ.numel() * -(-B // 32)
+        rows = K.row_tiled(B, flat)
+        assert call["arrivals"] == (None if rows else
+                                    flat.arrivals.data_ptr())
+        assert flat.arrivals.numel() >= (flat.run_ptr.numel() - 1) * \
+            -(-B // 32) or rows
+        assert call["scratch"] == flat.scratch.data_ptr()
+        assert flat.scratch.numel() >= K.megakernel_scratch_floats(B, flat,
+                                                                   rows)
+        seen.append((call["arrivals"], call["slots"], call["scratch"]))
+    # B = 33 grew the counters and remade the slots, and 4,096 the scratch
+    assert seen[2][0] != seen[1][0] and seen[2][1] != seen[1][1]
+    assert seen[4][2] != seen[3][2]
+    assert seen[5][2] == seen[6][2] == seen[4][2]      # kept, not shrunk
+    assert lib.packed == ["split-K", "row-tiled"]
+    K.reset_launches()
+
+
+def test_megakernel_rejects_bad_inputs_on_a_packed_schedule(monkeypatch):
+    """After a launch has packed the schedule, a call still raises for an
+    x of the wrong rank, width or device: the schedule is checked anew on
+    a device it was not packed for."""
+    flat = row_net("mlp")
+    monkeypatch.setattr(K._build, "load", lambda: FakeLib())
+    monkeypatch.setattr(K, "_stream", lambda index: 0)
+    K._launch_megakernel(torch.zeros((4096, 512)), flat, 2, 0, None, None,
+                         torch.empty((4096, 512)))
+    with pytest.raises(ValueError):
+        K.bsr_megakernel(torch.zeros(512), flat, "relu")
+    with pytest.raises(ValueError, match="multiple of the block size"):
+        K.bsr_megakernel(torch.zeros((4, 500)), flat, "relu")
+    with pytest.raises(ValueError, match="gate=True needs occ0"):
+        K.bsr_megakernel(torch.zeros((4, 512)), flat, "relu", gate=True,
+                         occ0=torch.ones(7, dtype=torch.int32))
+    meta = torch.zeros((4096, 512), device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        K.bsr_megakernel(meta, flat, "relu")
+    with pytest.raises(ValueError, match="blocks is on cpu, x on meta"):
+        K._launch_megakernel(meta, flat, 2, 0, None, None,
+                             torch.empty((4096, 512), device="meta"))
+    K.reset_launches()
 
 
 @pytest.mark.cuda
@@ -738,5 +866,76 @@ def test_cuda_row_tiled_gated_bit_equal(cuda_device, kind):
     assert err(y.cpu(), y_ref.cpu()) < 1e-4
     assert (K.bsr_megakernel.gated_launches, K.bsr_megakernel.launches,
             K.bsr_megakernel.row_tiled_launches) == (1, 1, 2)
+    assert not flat.arrivals.any()
+    K.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(ROW_NETS))
+def test_cuda_prepared_launch_through_both_walks(cuda_device, kind):
+    """One flat schedule through B = 1, 32, 33, 65, 4,096, 33, 4,096,
+    ungated and gated at each: every output within 1e-4 of the plain
+    version, the gated one bit-equal to the ungated one, a repeated call
+    bit-equal to the first, and the arrival counters zero after every
+    call; one launch block packed per walk and gate."""
+    from repro_torch.engine import tile_occupancy
+
+    flat = row_net(kind, "f32", cuda_device, dead_hidden=True)
+    (n_in, *_), block = ROW_NETS[kind]
+    gen = torch.Generator().manual_seed(2)
+    for B in PREPARED_BATCHES:
+        x = torch.randn((B, n_in), generator=gen)
+        x.reshape(B, -1, block)[:, ::2] = 0.0
+        x = x.to(cuda_device)
+        occ0 = tile_occupancy(x, block, n_in // block)
+        y = K.bsr_megakernel(x, flat, "relu", "none")
+        assert not flat.arrivals.any()
+        y_ref = K.bsr_megakernel_plain(x, flat, "relu", "none")
+        assert err(y.cpu(), y_ref.cpu()) < 1e-4
+        assert torch.equal(y, K.bsr_megakernel(x, flat, "relu", "none"))
+        yg, occ = K.bsr_megakernel(x, flat, "relu", "none", gate=True,
+                                   occ0=occ0)
+        assert not flat.arrivals.any()
+        assert torch.equal(yg, y)
+        _, occ_ref = K.bsr_megakernel_plain(x, flat, "relu", "none",
+                                            gate=True, occ0=occ0)
+        assert torch.equal(occ.cpu(), occ_ref.cpu())
+        yg2, occ2 = K.bsr_megakernel(x, flat, "relu", "none", gate=True,
+                                     occ0=occ0)
+        assert torch.equal(yg2, y) and torch.equal(occ2, occ)
+    assert len(flat.launch_blocks) == 2                # one per walk
+    K.reset_launches()
+
+
+@pytest.mark.cuda
+def test_cuda_megakernel_rejects_bad_inputs_on_a_packed_schedule(
+        cuda_device):
+    """Once the schedule is packed, a call still raises for x of a wrong
+    dtype or layout and for a wrong occ0, and a view of x that is not
+    16-byte aligned takes the split-K walk, within 1e-4 of the row-tiled
+    walk's output."""
+    flat = row_net("mlp", "f32", cuda_device)
+    x = torch.randn((4096, 512), generator=torch.Generator().manual_seed(3))
+    x = x.to(cuda_device)
+    y = K.bsr_megakernel(x, flat, "relu", "none")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K.bsr_megakernel(x.half(), flat, "relu", "none")
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        K.bsr_megakernel(x.reshape(512, 4096).t(), flat, "relu", "none")
+    occ0 = torch.ones(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="occ0 must be int32"):
+        K.bsr_megakernel(x, flat, "relu", "none", gate=True,
+                         occ0=occ0.long())
+    with pytest.raises(ValueError, match="occ0 is on cpu"):
+        K.bsr_megakernel(x, flat, "relu", "none", gate=True,
+                         occ0=occ0.cpu())
+    base = torch.empty(4096 * 512 + 1, device=cuda_device)
+    shifted = base[1:].view(4096, 512)
+    shifted.copy_(x)
+    K.reset_launches()
+    y_split = K.bsr_megakernel(shifted, flat, "relu", "none")
+    assert err(y_split.cpu(), y.cpu()) < 1e-4
+    assert (K.bsr_megakernel.launches,
+            K.bsr_megakernel.row_tiled_launches) == (1, 0)
     assert not flat.arrivals.any()
     K.reset_launches()
