@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "bsr_kernels.cu", CSRC / "bsr_row_tiled.cu",
            CSRC / "bsr_row_tiled_gated.cu", CSRC / "bsr_matmul.cu",
            CSRC / "moe_ffn.cu", CSRC / "adamw.cu")
-HEADERS = (CSRC / "common.cuh", CSRC / "row_tile.cuh", CSRC / "split_k.cuh")
+HEADERS = (CSRC / "common.cuh", CSRC / "mega.cuh", CSRC / "row_tile.cuh",
+           CSRC / "split_k.cuh")
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

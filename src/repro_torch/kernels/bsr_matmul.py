@@ -109,7 +109,7 @@ _W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 # keep in step with csrc/bsr_matmul.cu: threads per CTA, weight vectors a
 # thread holds, and the tallest K-slice
 _SPLIT_THREADS, _SPLIT_MAX_VEC, _SPLIT_MAX_ROWS = 128, 8, 32
-# the megakernel takes its segment table by value (csrc/bsr_kernels.cu)
+# the megakernel takes its layer table by value (kMaxLayers, csrc/mega.cuh)
 _MEGA_MAX_LAYERS = 32
 # the row-tiled route (csrc/row_tile.cuh): the block sizes it has
 # instances for, the batch rows of its items (kRowBM), and the least items
@@ -652,8 +652,8 @@ def _launch_megakernel(x, flat, act: int, fact: int, occ0, occ, out) -> None:
         _trace.count("mega.row_tiled")
 
 
-#: bytes the caller holds for one launch block (``MegaBlock`` in
-#: csrc/bsr_kernels.cu, under 300)
+#: bytes the caller holds for one launch block (``mega::Block`` in
+#: csrc/mega.cuh, under 300)
 _MEGA_BLOCK_BYTES = 512
 
 

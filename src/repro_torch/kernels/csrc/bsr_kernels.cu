@@ -102,6 +102,14 @@
 //    over chunks of this launch's slots, and 0 for tiles no layer writes
 //    (their slots carry another epoch).
 //
+// The C entries of both walks live here: bsr_megakernel_prepare checks and
+// packs what a flat schedule's launches share into a launch block
+// (mega::Block, mega.cuh), once per schedule, walk, x dtype and width, and
+// bsr_megakernel_prepared_launch checks one call's own values and launches
+// from the block: this walk through split_k_walk, the row-tiled walk
+// through mega::row_tiled{,_gated} (bsr_row_tiled{,_gated}.cu).  The host
+// pays for a ctypes call by the argument, so a call passes 11.
+//
 // Every launch goes on the caller's stream, allocates nothing and returns
 // cudaGetLastError() (or the launch API's own error).  Launches of one flat
 // schedule must be ordered on one stream: they share the arrival counters
@@ -111,7 +119,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <mutex>
+#include <cstdint>
 #include <utility>
 
 #include "split_k.cuh"
@@ -119,8 +127,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kMaxLayers = 32;  // the segment table travels by value
 
 struct MegaParams {
   const void* x;            // [B, n_in], XT
@@ -154,12 +160,6 @@ template <bool Gate, int VE>
 __host__ __device__ constexpr size_t mega_smem_words(int k_slice, int bs,
                                                      int in_tiles0) {
   return item_smem_floats<VE>(k_slice, bs) + (Gate ? (size_t)in_tiles0 : 0);
-}
-
-// the count of a slot this launch wrote, or -1 for a stale one
-__device__ __forceinline__ int slot_count(unsigned long long v,
-                                          unsigned epoch) {
-  return (unsigned)(v >> 32) == epoch ? (int)(unsigned)v : -1;
 }
 
 template <bool Gate, typename XT, typename WT, int VE>
@@ -255,18 +255,8 @@ __global__ void __launch_bounds__(kThreads)
           tile_ok[t] = (t < kThreads ? occ_t : __ldg(p.occ0 + t)) > 0;
         __syncthreads();
       }
-      if (is_final && blockIdx.x == gridDim.x - 1) {
-        // every hidden layer's slots are final: the returned occupancy
-        const int n_occ = max(1, p.n_layers - 1);
-        for (int e = threadIdx.x; e < n_occ * p.hidden_tiles;
-             e += kThreads) {
-          int sum = 0;  // 0 for tiles no layer writes in this launch
-          for (int j = 0; j < chunks; ++j)
-            sum += max(0, slot_count(__ldcg(p.slots + (size_t)e * chunks + j),
-                                     p.epoch));
-          p.occ[e] = sum;
-        }
-      }
+      if (is_final && blockIdx.x == gridDim.x - 1)
+        sum_occupancy<kThreads>(p, chunks);
     }
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
       const bool is_first = it == (int)blockIdx.x;
@@ -367,195 +357,58 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kMaxDevices = 16;
-
-// The co-resident CTA count of one kernel instance at one dynamic
-// shared-memory size, and its shared-memory attribute, set and queried once
-// per device rather than on every call.
+// one work item per CTA in the layer with the most
 template <bool Gate, typename XT, typename WT, int VE>
-cudaError_t coresident_ctas(size_t smem, int* ctas) {
-  struct Cap {
-    size_t smem;
-    int ctas;
-  };
-  static std::mutex mu;
-  static Cap cap[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  Cap* c = dev < kMaxDevices ? &cap[dev] : nullptr;
-  if (c != nullptr && c->ctas > 0 && c->smem == smem) {
-    *ctas = c->ctas;
-    return cudaSuccess;
-  }
-  auto kernel = bsr_megakernel_kernel<Gate, XT, WT, VE>;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *ctas = per_sm * sms;
-  if (c != nullptr) *c = Cap{smem, *ctas};
-  return cudaSuccess;
-}
-
-template <bool Gate, typename XT, typename WT, int VE>
-cudaError_t launch_megakernel(MegaParams p, int max_layer_steps,
-                              cudaStream_t stream, int* grid_used) {
-  const size_t smem =
-      4 * mega_smem_words<Gate, VE>(p.k_slice, p.bs, p.n_in / p.bs);
-  int ctas = 0;
-  cudaError_t err = coresident_ctas<Gate, XT, WT, VE>(smem, &ctas);
-  if (err != cudaSuccess) return err;
+cudaError_t launch_megakernel(const MegaParams& p, int max_layer_steps,
+                              cudaStream_t stream, int* grid) {
   const int chunks = (p.B + kChunkRows - 1) / kChunkRows;
-  int grid = max_layer_steps * p.n_slices * chunks;
-  if (grid > ctas) grid = ctas;  // all CTAs co-resident
-  if (grid < 1) grid = 1;
-  if (grid_used != nullptr) *grid_used = grid;
-  auto kernel = bsr_megakernel_kernel<Gate, XT, WT, VE>;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                    dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cooperative<bsr_megakernel_kernel<Gate, XT, WT, VE>,
+                            kThreads>(
+      p, max_layer_steps * p.n_slices * chunks,
+      4 * mega_smem_words<Gate, VE>(p.k_slice, p.bs, p.n_in / p.bs), stream,
+      grid);
 }
 
+// The split-K walk's launcher: MegaParams from the block and the call, then
+// the instance for the dtypes and the load width.
 template <bool Gate>
-int megakernel_dispatch(int x_dtype, int w_dtype, bool vec,
-                        const MegaParams& p, int max_layer_steps,
-                        cudaStream_t s, int* grid) {
-#define BSR_MEGA(XT, WT, VE) \
-  return (int)launch_megakernel<Gate, XT, WT, VE>(p, max_layer_steps, s, grid)
-  switch (x_dtype * 3 + w_dtype) {
-    case 0: if (vec) BSR_MEGA(float, float, 4); BSR_MEGA(float, float, 1);
-    case 1:
-      if (vec) BSR_MEGA(float, __nv_bfloat16, 8);
-      BSR_MEGA(float, __nv_bfloat16, 1);
-    case 2:
-      if (vec) BSR_MEGA(float, __nv_fp8_e4m3, 16);
-      BSR_MEGA(float, __nv_fp8_e4m3, 1);
-    case 3:
-      if (vec) BSR_MEGA(__nv_bfloat16, float, 4);
-      BSR_MEGA(__nv_bfloat16, float, 1);
-    case 4:
-      if (vec) BSR_MEGA(__nv_bfloat16, __nv_bfloat16, 8);
-      BSR_MEGA(__nv_bfloat16, __nv_bfloat16, 1);
-    case 5:
-      if (vec) BSR_MEGA(__nv_bfloat16, __nv_fp8_e4m3, 16);
-      BSR_MEGA(__nv_bfloat16, __nv_fp8_e4m3, 1);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BSR_MEGA
+cudaError_t split_k_walk(const mega::Block& b, const mega::Call& c,
+                         int* grid) {
+  // the scratch holds the hidden ping-pong buffer, then the partials
+  float* partial = c.scratch + (size_t)2 * b.hidden_tiles * c.B * b.bs;
+  MegaParams p{c.x,          b.blocks,   b.rows,       b.cols,
+               b.run_ptr,    b.step_run, b.part_off,   b.bias_idx,
+               b.bias_tiles, b.scales,   c.occ0,       c.slots,
+               c.occ,        c.scratch,  partial,      c.arrivals,
+               c.out,        c.B,        b.n_in,       b.n_out,
+               b.bs,         b.n_layers, b.hidden_tiles, b.k_slice,
+               b.n_slices,   b.act,      b.final_act,  c.epoch};
+  for (int k = 0; k <= b.n_layers; ++k) p.seg[k] = b.seg[k];
+  return with_dtypes(b.x_dtype, b.w_dtype, [&](auto xt, auto wt) {
+    using XT = typename decltype(xt)::type;
+    using WT = typename decltype(wt)::type;
+    auto* go = b.vec != 1 ? &launch_megakernel<Gate, XT, WT, kVec<WT>>
+                          : &launch_megakernel<Gate, XT, WT, 1>;
+    return go(p, b.max_layer_steps, c.stream, grid);
+  });
 }
-
-}  // namespace
-
-// x_dtype: 0 float32, 1 bfloat16.  w_dtype: 0 float32, 1 bfloat16,
-// 2 float8_e4m3fn.  vec: weight elements per load, 16 bytes' worth or 1.
-// scales may be null (unit scale).  Gated when occ is not null: then occ0
-// [grid_in_0] is read, slots [max(1, n_layers-1), hidden_tiles, chunks]
-// (8 bytes each, zero at first, kept between launches with one layout) is
-// written with `epoch`, which is not 0 and differs from the epochs of the
-// earlier launches on them, and occ [max(1, n_layers-1), hidden_tiles] is
-// written in full.  seg: the first flat step of every layer, then the step
-// count (n_layers + 1 host ints, n_layers <= kMaxLayers).  grid, when not
-// null, receives the cooperative grid size.
-extern "C" int bsr_megakernel_launch(
-    int x_dtype, int w_dtype, int vec, const void* x, const void* blocks,
-    const int* rows, const int* cols, const int* run_ptr,
-    const int* step_run, const int* part_off, const int* bias_idx,
-    const float* bias_tiles, const float* scales, const int* occ0,
-    void* slots, int* occ, float* hidden, float* partial, int* arrivals,
-    void* out, int B, int n_in, int n_out, int bs, int n_layers,
-    int hidden_tiles, int k_slice, int n_slices, int max_layer_steps,
-    int act, int final_act, unsigned epoch, const int* seg, void* stream,
-    int* grid) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec != 1 && vec * (w_dtype == 0 ? 4 : w_dtype == 1 ? 2 : 1) != 16)
-    return (int)cudaErrorInvalidValue;
-  if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
-  MegaParams p{x,          blocks,     rows,      cols,
-               run_ptr,    step_run,   part_off,  bias_idx,
-               bias_tiles, scales,     occ0,
-               static_cast<unsigned long long*>(slots),
-               occ,        hidden,     partial,   arrivals,
-               out,        B,          n_in,      n_out,
-               bs,         n_layers,   hidden_tiles, k_slice,
-               n_slices,   act,        final_act, epoch};
-  for (int k = 0; k <= n_layers; ++k) p.seg[k] = seg[k];
-  if (occ != nullptr) {
-    if (occ0 == nullptr || slots == nullptr || epoch == 0)
-      return (int)cudaErrorInvalidValue;
-    return megakernel_dispatch<true>(x_dtype, w_dtype, vec != 1, p,
-                                     max_layer_steps, s, grid);
-  }
-  return megakernel_dispatch<false>(x_dtype, w_dtype, vec != 1, p,
-                                    max_layer_steps, s, grid);
-}
-
-// The prepared launch.  What a flat schedule's launches share (its tensors,
-// sizes, split-K constants, epilogues and layer table) is packed once per
-// schedule, walk, x dtype and width into a launch block, in memory the
-// caller owns and keeps (bsr_megakernel_prepare); each call then passes
-// only its own values (bsr_megakernel_prepared_launch): 11 arguments where
-// the walks' entries take 28 and 35, since the host pays for a ctypes call
-// by the argument.  A launch reads the block and never writes it, so
-// threads may share one.
-
-// bsr_row_tiled.cu, bsr_row_tiled_gated.cu (row_tile.cuh's
-// BSR_ROW_TILED_ARGS)
-extern "C" int bsr_megakernel_row_tiled_launch(
-    int x_dtype, int w_dtype, const void* x, const void* blocks,
-    const int* rows, const int* cols, const int* run_ptr,
-    const int* run_order, const int* bias_idx, const float* bias_tiles,
-    const float* scales, const int* occ0, void* slots, int* occ,
-    float* hidden, void* out, int B, int n_in, int n_out, int bs,
-    int n_layers, int hidden_tiles, int act, int final_act, unsigned epoch,
-    const int* run_seg, void* stream, int* grid);
-extern "C" int bsr_megakernel_row_tiled_gated_launch(
-    int x_dtype, int w_dtype, const void* x, const void* blocks,
-    const int* rows, const int* cols, const int* run_ptr,
-    const int* run_order, const int* bias_idx, const float* bias_tiles,
-    const float* scales, const int* occ0, void* slots, int* occ,
-    float* hidden, void* out, int B, int n_in, int n_out, int bs,
-    int n_layers, int hidden_tiles, int act, int final_act, unsigned epoch,
-    const int* run_seg, void* stream, int* grid);
-
-namespace {
-
-struct MegaBlock {
-  int row_tiled;  // the walk: 1 row-tiled, 0 split-K
-  int x_dtype, w_dtype, vec;
-  const void* blocks;
-  const int *rows, *cols, *run_ptr;
-  const int *step_run, *part_off;  // split-K
-  const int* run_order;            // row-tiled
-  const int* bias_idx;
-  const float *bias_tiles, *scales;
-  int n_in, n_out, bs, n_layers, hidden_tiles;
-  int k_slice, n_slices, max_layer_steps;  // split-K
-  int act, final_act;
-  // split-K: each layer's first flat step, then the step count (seg);
-  // row-tiled: each layer's first entry of run_order, then the run count
-  // (run_seg)
-  int seg[kMaxLayers + 1];
-};
 
 }  // namespace
 
 // Packs a launch block into `block` (`capacity` bytes, at least
-// sizeof(MegaBlock)): the arguments of bsr_megakernel_launch (row_tiled 0)
-// or of the row-tiled entries (row_tiled 1) that do not change between a
-// schedule's calls; the walk ignores the others (null or 0 there).  seg:
-// n_layers + 1 host ints, copied.  Returns 0 or cudaErrorInvalidValue.
+// sizeof(mega::Block)): what a flat schedule's launches share, for one walk
+// (row_tiled 1: the row-tiled walk, row_tile.cuh; 0: the split-K walk), x
+// dtype and width.  x_dtype: 0 float32, 1 bfloat16.  w_dtype: 0 float32,
+// 1 bfloat16, 2 float8_e4m3fn.  scales may be null (unit scale).  seg:
+// n_layers + 1 host ints (n_layers <= kMaxLayers), copied: on the split-K
+// walk each layer's first flat step, then the step count; on the row-tiled
+// walk each layer's first entry of run_order (device; every layer's runs,
+// longest first), then the run count.  The split-K walk reads step_run,
+// part_off, k_slice, n_slices, max_layer_steps and vec (weight elements
+// per load, 16 bytes' worth or 1); the row-tiled walk reads run_order and
+// takes bs 64 or 128 and, for float32 weights, null scales.  A walk ignores
+// the other walk's arguments (null or 0 there).  Returns 0 or
+// cudaErrorInvalidValue.
 extern "C" int bsr_megakernel_prepare(
     void* block, size_t capacity, int row_tiled, int x_dtype, int w_dtype,
     int vec, const void* blocks, const int* rows, const int* cols,
@@ -564,47 +417,56 @@ extern "C" int bsr_megakernel_prepare(
     const float* scales, int n_in, int n_out, int bs, int n_layers,
     int hidden_tiles, int k_slice, int n_slices, int max_layer_steps,
     int act, int final_act, const int* seg) {
-  if (block == nullptr || capacity < sizeof(MegaBlock) || seg == nullptr ||
+  if (block == nullptr || capacity < sizeof(mega::Block) || seg == nullptr ||
       n_layers < 1 || n_layers > kMaxLayers)
     return (int)cudaErrorInvalidValue;
-  MegaBlock b{row_tiled != 0, x_dtype,   w_dtype,   vec,        blocks,
-              rows,           cols,      run_ptr,   step_run,   part_off,
-              run_order,      bias_idx,  bias_tiles, scales,    n_in,
-              n_out,          bs,        n_layers,  hidden_tiles, k_slice,
-              n_slices,       max_layer_steps, act, final_act,  {}};
+  // what the walk's kernel instances take
+  const bool takes = row_tiled ? (bs == 64 || bs == 128) &&
+                                     (w_dtype != 0 || scales == nullptr)
+                               : vec_ok(vec, w_dtype);
+  if (!takes) return (int)cudaErrorInvalidValue;
+  mega::Block b{row_tiled != 0, x_dtype,   w_dtype,   vec,        blocks,
+                rows,           cols,      run_ptr,   step_run,   part_off,
+                run_order,      bias_idx,  bias_tiles, scales,    n_in,
+                n_out,          bs,        n_layers,  hidden_tiles, k_slice,
+                n_slices,       max_layer_steps, act, final_act,  {}};
   for (int k = 0; k <= n_layers; ++k) b.seg[k] = seg[k];
-  *static_cast<MegaBlock*>(block) = b;
+  *static_cast<mega::Block*>(block) = b;
   return 0;
 }
 
-// One launch from a packed block, with this call's values: x, out, the
-// f32 scratch (the hidden ping-pong buffer [2, hidden_tiles, B, bs], then
-// on the split-K walk the partials), B, the stream, the split-K walk's
-// arrival counters, and, gated (occ not null), occ0, slots, occ and epoch,
-// as bsr_megakernel_launch takes them.  Returns the cooperative grid size
-// (at least 1), or minus the CUDA error.
+// One launch from a packed block, with this call's values: x [B, n_in]
+// (16-byte aligned on the row-tiled walk), out [B, n_out], the f32 scratch
+// (the hidden ping-pong buffer [2, hidden_tiles, B, bs], then on the
+// split-K walk the partials [n_steps * n_slices, B, bs]), B >= 1, the
+// stream, and the split-K walk's arrival counters [n_runs, chunks] (zero
+// between launches).  Gated when occ is not null: then occ0 [grid_in_0] is
+// read, slots [max(1, n_layers-1), hidden_tiles, chunks] (8 bytes each,
+// zero at first, kept between launches with one layout) is written with
+// `epoch`, which is not 0 and differs from the epochs of the earlier
+// launches on them, and occ [max(1, n_layers-1), hidden_tiles] is written
+// in full.  A launch reads the block and never writes it, so threads may
+// share one.  Returns the cooperative grid size (at least 1), or minus the
+// CUDA error.
 extern "C" int bsr_megakernel_prepared_launch(
     const void* block, const void* x, void* out, float* scratch, int B,
     void* stream, int* arrivals, const int* occ0, void* slots, int* occ,
     unsigned epoch) {
-  const MegaBlock& b = *static_cast<const MegaBlock*>(block);
+  const mega::Block& b = *static_cast<const mega::Block*>(block);
+  const bool gate = occ != nullptr;
+  if (B < 1 || (gate && (occ0 == nullptr || slots == nullptr || epoch == 0)) ||
+      (b.row_tiled && reinterpret_cast<uintptr_t>(x) % 16 != 0))
+    return -(int)cudaErrorInvalidValue;
+  const mega::Call c{x,        out,  scratch,
+                     B,        static_cast<cudaStream_t>(stream),
+                     arrivals, occ0, static_cast<unsigned long long*>(slots),
+                     occ,      epoch};
   int grid = 0;
-  int rc;
-  if (b.row_tiled) {
-    rc = (occ != nullptr ? bsr_megakernel_row_tiled_gated_launch
-                         : bsr_megakernel_row_tiled_launch)(
-        b.x_dtype, b.w_dtype, x, b.blocks, b.rows, b.cols, b.run_ptr,
-        b.run_order, b.bias_idx, b.bias_tiles, b.scales, occ0, slots, occ,
-        scratch, out, B, b.n_in, b.n_out, b.bs, b.n_layers, b.hidden_tiles,
-        b.act, b.final_act, epoch, b.seg, stream, &grid);
-  } else {
-    float* partial = scratch + (size_t)2 * b.hidden_tiles * B * b.bs;
-    rc = bsr_megakernel_launch(
-        b.x_dtype, b.w_dtype, b.vec, x, b.blocks, b.rows, b.cols, b.run_ptr,
-        b.step_run, b.part_off, b.bias_idx, b.bias_tiles, b.scales, occ0,
-        slots, occ, scratch, partial, arrivals, out, B, b.n_in, b.n_out,
-        b.bs, b.n_layers, b.hidden_tiles, b.k_slice, b.n_slices,
-        b.max_layer_steps, b.act, b.final_act, epoch, b.seg, stream, &grid);
-  }
-  return rc != 0 ? -rc : grid;
+  cudaError_t err;
+  if (b.row_tiled)
+    err = (gate ? mega::row_tiled_gated : mega::row_tiled)(b, c, &grid);
+  else
+    err = gate ? split_k_walk<true>(b, c, &grid)
+               : split_k_walk<false>(b, c, &grid);
+  return err != cudaSuccess ? -(int)err : grid;
 }

@@ -129,33 +129,13 @@ extern "C" int bsr_matmul_launch(
     float* partial, int* arrivals, void* out, int B, int n_in, int n_out,
     int bm, int bn, int n_steps, int k_slice, int n_slices, int vec, int act,
     void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec != 1 && vec * (w_dtype == 0 ? 4 : w_dtype == 1 ? 2 : 1) != 16)
-    return (int)cudaErrorInvalidValue;
-#define BSR_MATMUL(XT, WT, VE)                                             \
-  return (int)launch<XT, WT, VE>(x, blocks, rows, cols, run_ptr, step_run, \
-                                 part_off, bias, scales, partial, arrivals, \
-                                 out, B, n_in, n_out, bm, bn, n_steps,     \
-                                 k_slice, n_slices, act, s)
-  const bool v = vec != 1;
-  switch (x_dtype * 3 + w_dtype) {
-    case 0: if (v) BSR_MATMUL(float, float, 4); BSR_MATMUL(float, float, 1);
-    case 1:
-      if (v) BSR_MATMUL(float, __nv_bfloat16, 8);
-      BSR_MATMUL(float, __nv_bfloat16, 1);
-    case 2:
-      if (v) BSR_MATMUL(float, __nv_fp8_e4m3, 16);
-      BSR_MATMUL(float, __nv_fp8_e4m3, 1);
-    case 3:
-      if (v) BSR_MATMUL(__nv_bfloat16, float, 4);
-      BSR_MATMUL(__nv_bfloat16, float, 1);
-    case 4:
-      if (v) BSR_MATMUL(__nv_bfloat16, __nv_bfloat16, 8);
-      BSR_MATMUL(__nv_bfloat16, __nv_bfloat16, 1);
-    case 5:
-      if (v) BSR_MATMUL(__nv_bfloat16, __nv_fp8_e4m3, 16);
-      BSR_MATMUL(__nv_bfloat16, __nv_fp8_e4m3, 1);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BSR_MATMUL
+  if (!vec_ok(vec, w_dtype)) return (int)cudaErrorInvalidValue;
+  return (int)with_dtypes(x_dtype, w_dtype, [&](auto xt, auto wt) {
+    using XT = typename decltype(xt)::type;
+    using WT = typename decltype(wt)::type;
+    auto* go = vec != 1 ? &launch<XT, WT, kVec<WT>> : &launch<XT, WT, 1>;
+    return go(x, blocks, rows, cols, run_ptr, step_run, part_off, bias,
+              scales, partial, arrivals, out, B, n_in, n_out, bm, bn, n_steps,
+              k_slice, n_slices, act, static_cast<cudaStream_t>(stream));
+  });
 }

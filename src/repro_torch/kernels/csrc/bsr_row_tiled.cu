@@ -1,9 +1,10 @@
-// The megakernel's row-tiled route, ungated: the C entry that
-// bsr_megakernel (kernels/bsr_matmul.py) calls for a large batch without
-// gate.  The kernel, its design and what bounds it: row_tile.cuh.
+// The megakernel's row-tiled walk, ungated: the launcher that
+// bsr_megakernel_prepared_launch (bsr_kernels.cu) calls for a row-tiled
+// launch block without gate.  The kernel, its design and what bounds it:
+// row_tile.cuh.
 
 #include "row_tile.cuh"
 
-extern "C" int bsr_megakernel_row_tiled_launch(BSR_ROW_TILED_ARGS) {
-  return row_tiled_launch<false>(BSR_ROW_TILED_CALL);
+cudaError_t mega::row_tiled(const Block& b, const Call& c, int* grid) {
+  return row_tiled_walk<false>(b, c, grid);
 }

@@ -1,7 +1,9 @@
 // Hand-written Hopper (sm_90a) megakernel, its row-tiled route: the whole
-// scheduled block-sparse net in one launch, for large batches.  Its two C
-// entries compile in two units, so that nvcc builds them side by side:
-// bsr_row_tiled.cu (ungated) and bsr_row_tiled_gated.cu (Gate = true).
+// scheduled block-sparse net in one launch, for large batches.  Its two
+// launchers, mega::row_tiled and mega::row_tiled_gated (mega.cuh), compile
+// in two units, so that nvcc builds them side by side: bsr_row_tiled.cu
+// (ungated) and bsr_row_tiled_gated.cu (Gate = true).  Both launch from the
+// megakernel's launch block, which bsr_kernels.cu's C entries check.
 //
 // bsr_megakernel (kernels/bsr_matmul.py) launches one of two kernels for
 // the Pallas kernel bsr_megakernel (src/repro/kernels/bsr_matmul.py,
@@ -92,12 +94,10 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <cstdint>
-#include <mutex>
 #include <type_traits>
 #include <utility>
 
-#include "common.cuh"
+#include "mega.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -108,8 +108,6 @@ constexpr int kRowBM = 64;         // batch rows of an item
 constexpr int kRowTM = kRowBM / 16;  // of them, a thread's
 constexpr int kRowBK = 64;         // K-rows of a block per stage
 constexpr int kRowStages = 2;      // the cp.async buffers
-constexpr int kRowMaxLayers = 32;  // the run table travels by value
-constexpr int kChunkRows = 32;     // the occupancy slots' row chunk
 
 // a staged x row in elements: kRowBK and 16 bytes of padding, so that the
 // rows a warp reads at once fall in different banks
@@ -259,14 +257,8 @@ struct RowParams {
   void* out;                // [B, n_out], XT
   int B, n_in, n_out, n_layers, hidden_tiles, act, final_act;
   unsigned epoch;           // Gate: this launch's tag on the slots, not 0
-  int run_seg[kRowMaxLayers + 1];  // each layer's first entry of run_order
+  int run_seg[kMaxLayers + 1];  // each layer's first entry of run_order
 };
-
-// the count of a slot this launch wrote, or -1 for a stale one
-__device__ __forceinline__ int slot_count(unsigned long long v,
-                                          unsigned epoch) {
-  return (unsigned)(v >> 32) == epoch ? (int)(unsigned)v : -1;
-}
 
 // Where a CTA's walk of one layer stands: its n-th item (run, row tile
 // from b0) and, in it, step g's K-rows k0 .. k0 + kRowBK - 1.  g < 0 marks
@@ -365,21 +357,6 @@ __device__ __forceinline__ void row_live(const RowParams& p, int k,
       if (slot_count(__ldcg(sl + e), p.epoch) > 0) live[e / chunks] = 1;
   }
   __syncthreads();
-}
-
-// Gate, once every hidden layer's slots are final: the returned occupancy,
-// the sum over chunks of this launch's slots (0 for tiles no layer writes:
-// their slots carry another epoch)
-__device__ __forceinline__ void row_occ(const RowParams& p) {
-  const int chunks = (p.B + kChunkRows - 1) / kChunkRows;
-  const int n_occ = max(1, p.n_layers - 1);
-  for (int e = threadIdx.x; e < n_occ * p.hidden_tiles; e += kRowThreads) {
-    int sum = 0;
-    for (int j = 0; j < chunks; ++j)
-      sum += max(0, slot_count(__ldcg(p.slots + (size_t)e * chunks + j),
-                               p.epoch));
-    p.occ[e] = sum;
-  }
 }
 
 // per warp, the rows of an item with a nonzero, per 32-row chunk
@@ -548,7 +525,8 @@ __global__ void __launch_bounds__(kRowThreads, 2)
     const bool is_final = k == p.n_layers - 1;
     if constexpr (Gate) {
       row_live<BS>(p, k, live);
-      if (is_final && blockIdx.x == gridDim.x - 1) row_occ(p);
+      if (is_final && blockIdx.x == gridDim.x - 1)
+        sum_occupancy<kRowThreads>(p, (p.B + kChunkRows - 1) / kChunkRows);
     }
     if constexpr (std::is_same<XT, float>::value) {
       row_layer<Gate, XT, WT, BS, float>(p, k, ring, live, nz_words,
@@ -579,133 +557,41 @@ __global__ void __launch_bounds__(kRowThreads, 2)
   }
 }
 
-constexpr int kMaxDevices = 16;
-
-// The co-resident CTA count of one kernel instance at one dynamic
-// shared-memory size, and its shared-memory attribute, set and queried
-// once per device rather than on every call.
 template <bool Gate, typename XT, typename WT, int BS>
-cudaError_t row_coresident_ctas(size_t smem, int* ctas) {
-  struct Cap {
-    size_t smem;
-    int ctas;
-  };
-  static std::mutex mu;
-  static Cap cap[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  Cap* c = dev < kMaxDevices ? &cap[dev] : nullptr;
-  if (c != nullptr && c->ctas > 0 && c->smem == smem) {
-    *ctas = c->ctas;
-    return cudaSuccess;
-  }
-  auto kernel = bsr_megakernel_row_tiled_kernel<Gate, XT, WT, BS>;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kRowThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *ctas = per_sm * sms;
-  if (c != nullptr) *c = Cap{smem, *ctas};
-  return cudaSuccess;
-}
-
-template <bool Gate, typename XT, typename WT, int BS>
-cudaError_t launch_row_tiled(RowParams p, cudaStream_t stream,
-                             int* grid_used) {
+cudaError_t launch_row_tiled(const RowParams& p, cudaStream_t stream,
+                             int* grid) {
   // the buffers, then (gated) one int per input tile of any layer
   const size_t smem =
       (size_t)kRowStages * row_stage_bytes<WT, BS>() +
       (Gate ? 4 * (size_t)max(p.n_in / BS, p.hidden_tiles) : 0);
-  int ctas = 0;
-  cudaError_t err = row_coresident_ctas<Gate, XT, WT, BS>(smem, &ctas);
-  if (err != cudaSuccess) return err;
-  int grid = 1;  // the most items of any layer, at most the co-resident CTAs
+  int items = 0;  // of the layer with the most
   for (int k = 0; k < p.n_layers; ++k)
-    grid = max(grid, (p.run_seg[k + 1] - p.run_seg[k]) *
-                         ((p.B + kRowBM - 1) / kRowBM));
-  if (grid > ctas) grid = ctas;
-  if (grid_used != nullptr) *grid_used = grid;
-  auto kernel = bsr_megakernel_row_tiled_kernel<Gate, XT, WT, BS>;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                    dim3(kRowThreads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+    items = max(items, (p.run_seg[k + 1] - p.run_seg[k]) *
+                           ((p.B + kRowBM - 1) / kRowBM));
+  return launch_cooperative<bsr_megakernel_row_tiled_kernel<Gate, XT, WT, BS>,
+                            kRowThreads>(p, items, smem, stream, grid);
 }
 
-// The C entries' body: RowParams from their arguments (or
-// cudaErrorInvalidValue for what the kernel does not take), then the
-// instance for the dtypes and block size.
+// The walk's launcher (bsr_row_tiled.cu, bsr_row_tiled_gated.cu): RowParams
+// from the block and the call, then the instance for the dtypes and the
+// block size.
 template <bool Gate>
-int row_tiled_launch(int x_dtype, int w_dtype, const void* x,
-                     const void* blocks, const int* rows, const int* cols,
-                     const int* run_ptr, const int* run_order,
-                     const int* bias_idx, const float* bias_tiles,
-                     const float* scales, const int* occ0, void* slots,
-                     int* occ, float* hidden, void* out, int B, int n_in,
-                     int n_out, int bs, int n_layers, int hidden_tiles,
-                     int act, int final_act, unsigned epoch,
-                     const int* run_seg, void* stream, int* grid) {
-  if ((bs != 64 && bs != 128) || (w_dtype == 0 && scales != nullptr) ||
-      n_layers < 1 || n_layers > kRowMaxLayers || B < 1 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (Gate && (occ0 == nullptr || slots == nullptr || occ == nullptr ||
-               epoch == 0))
-    return (int)cudaErrorInvalidValue;
-  RowParams p{x,          blocks,    rows,     cols,   run_ptr,
-              run_order,  bias_idx,  bias_tiles, scales, occ0,
-              static_cast<unsigned long long*>(slots),
-              occ,        hidden,    out,      B,      n_in,
-              n_out,      n_layers,  hidden_tiles, act, final_act,
-              epoch};
-  for (int k = 0; k <= n_layers; ++k) p.run_seg[k] = run_seg[k];
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BSR_ROWS(XT, WT)                                                  \
-  return (int)(bs == 128 ? launch_row_tiled<Gate, XT, WT, 128>(p, s, grid) \
-                         : launch_row_tiled<Gate, XT, WT, 64>(p, s, grid))
-  switch (x_dtype * 3 + w_dtype) {
-    case 0: BSR_ROWS(float, float);
-    case 1: BSR_ROWS(float, __nv_bfloat16);
-    case 2: BSR_ROWS(float, __nv_fp8_e4m3);
-    case 3: BSR_ROWS(__nv_bfloat16, float);
-    case 4: BSR_ROWS(__nv_bfloat16, __nv_bfloat16);
-    case 5: BSR_ROWS(__nv_bfloat16, __nv_fp8_e4m3);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BSR_ROWS
+cudaError_t row_tiled_walk(const mega::Block& b, const mega::Call& c,
+                           int* grid) {
+  RowParams p{c.x,          b.blocks,   b.rows,     b.cols,
+              b.run_ptr,    b.run_order, b.bias_idx, b.bias_tiles,
+              b.scales,     c.occ0,     c.slots,    c.occ,
+              c.scratch,    c.out,      c.B,        b.n_in,
+              b.n_out,      b.n_layers, b.hidden_tiles, b.act,
+              b.final_act,  c.epoch};
+  for (int k = 0; k <= b.n_layers; ++k) p.run_seg[k] = b.seg[k];
+  return with_dtypes(b.x_dtype, b.w_dtype, [&](auto xt, auto wt) {
+    using XT = typename decltype(xt)::type;
+    using WT = typename decltype(wt)::type;
+    auto* go = b.bs == 128 ? &launch_row_tiled<Gate, XT, WT, 128>
+                           : &launch_row_tiled<Gate, XT, WT, 64>;
+    return go(p, c.stream, grid);
+  });
 }
 
 }  // namespace
-
-// The C entries' arguments (bsr_row_tiled.cu, bsr_row_tiled_gated.cu):
-// x_dtype 0 float32, 1 bfloat16 (x 16-byte aligned); w_dtype 0 float32
-// (scales null), 1 bfloat16, 2 float8_e4m3fn; bs 64 or 128; run_order
-// (device) lists every layer's runs, longest first, and run_seg
-// (n_layers + 1 host ints, n_layers <= kRowMaxLayers) each layer's first
-// entry of it, then the run count; occ0, slots, occ and epoch are read by
-// the gated entry only, as bsr_megakernel_launch takes them; grid, when
-// not null, receives the cooperative grid size.
-#define BSR_ROW_TILED_ARGS                                                  \
-  int x_dtype, int w_dtype, const void *x, const void *blocks,              \
-      const int *rows, const int *cols, const int *run_ptr,                 \
-      const int *run_order, const int *bias_idx, const float *bias_tiles,   \
-      const float *scales, const int *occ0, void *slots, int *occ,          \
-      float *hidden, void *out, int B, int n_in, int n_out, int bs,         \
-      int n_layers, int hidden_tiles, int act, int final_act,               \
-      unsigned epoch, const int *run_seg, void *stream, int *grid
-#define BSR_ROW_TILED_CALL                                                  \
-  x_dtype, w_dtype, x, blocks, rows, cols, run_ptr, run_order, bias_idx,    \
-      bias_tiles, scales, occ0, slots, occ, hidden, out, B, n_in, n_out,    \
-      bs, n_layers, hidden_tiles, act, final_act, epoch, run_seg, stream,   \
-      grid

@@ -26,12 +26,11 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "common.cuh"
+#include "mega.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunkRows = 32;  // batch rows per work item
 // rows per pass over the weight registers: 4 for fp8's 16-wide vectors,
 // so that the accumulators ([rows][VE]) stay within the register file
 template <int VE>

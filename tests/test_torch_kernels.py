@@ -506,6 +506,26 @@ def test_schedule_launches_stay_on_one_stream(make_stack, monkeypatch):
     K.reset_launches()
 
 
+def test_library_abi_and_build_key_match_the_sources():
+    """The C entries defined across ``csrc/*.cu`` are exactly the ones
+    ``_build`` binds, every ``.cu`` is built, and the headers that key the
+    build are exactly the ones the sources include: a header missing from
+    ``HEADERS`` would leave a stale build under the same hash."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
+    headers = {p.name: p.read_text() for p in _build.CSRC.glob("*.cuh")}
+    entries = {name for text in sources.values()
+               for name in re.findall(r'extern "C" \w+ (\w+)\(', text)}
+    assert entries == set(_build._SIGNATURES)
+    assert set(sources) == {p.name for p in _build.SOURCES}
+    included = {name for text in [*sources.values(), *headers.values()]
+                for name in re.findall(r'#include "([^"]+)"', text)}
+    assert included == {p.name for p in _build.HEADERS}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
