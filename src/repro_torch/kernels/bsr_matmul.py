@@ -53,7 +53,8 @@ and ``bsr_megakernel.gated_launches`` the gated megakernel's (plain-version
 calls are not counted), exactly under concurrency;
 ``bsr_megakernel.row_tiled_launches`` counts the megakernel launches, gated
 or not, that took the row-tiled route (and, while tracing is active, each
-adds 1 to the ``mega.row_tiled`` counter of ``obs.trace``);
+adds 1 to the ``mega.row_tiled`` counter of ``obs.trace``, and its patch
+items, patch runs x row tiles, to ``mega.patch_items``);
 ``reset_launches()`` zeroes all four.  ``bsr_megakernel.grid`` is the
 cooperative grid size of the last launch.
 """
@@ -221,10 +222,14 @@ class RowRuns:
     """The order in which the megakernel's row-tiled route deals out a flat
     schedule's runs.
 
-    ``order`` lists each layer's output-tile runs longest first (ties in
-    schedule order), layer after layer; layer ``k``'s are
-    ``order[first[k]:first[k + 1]]``.  A work item is (run, row tile);
-    item ``i`` of layer ``k`` is row tile ``i % nt`` of run
+    ``live[r]`` counts run ``r``'s live steps: every step but a patch block
+    (the zero block that ``ops.compile_schedule`` gives an output tile with
+    no kept block, so that its epilogue writes ``act(bias)``).  A patch run
+    has none: the walk writes its tiles with no stage.  ``order`` lists each
+    layer's output-tile runs by live steps, longest first (ties in schedule
+    order), so patch runs come last; layer after layer, layer ``k``'s are
+    ``order[first[k]:first[k + 1]]``.  A work item is (run, row tile); item
+    ``i`` of layer ``k`` is row tile ``i % nt`` of run
     ``order[first[k] + i // nt]``, and the CTAs take the items in rounds,
     forward then backward (``csrc/row_tile.cuh``).
     """
@@ -232,20 +237,34 @@ class RowRuns:
     order: np.ndarray          # int32 [n_runs]
     first: Tuple[int, ...]     # [n_layers + 1]
     fewest: int                # runs of the layer with the fewest
+    live: np.ndarray           # int32 [n_runs]
+
+    @property
+    def patch_runs(self) -> int:
+        """The runs with no live step."""
+        return int(np.count_nonzero(self.live == 0))
+
+    def walk_order(self) -> np.ndarray:
+        """``order`` as the kernel reads it: a patch run ``r`` as ``~r``."""
+        return np.where(self.live[self.order] > 0, self.order,
+                        ~self.order).astype(np.int32)
 
 
-def row_runs(run_ptr, segments) -> RowRuns:
-    """The row-tiled deal of a flat schedule with run table ``run_ptr``
-    and layer ``segments`` (every layer starts a run)."""
+def row_runs(run_ptr, segments, live) -> RowRuns:
+    """The row-tiled deal of a flat schedule with run table ``run_ptr``,
+    layer ``segments`` (every layer starts a run) and ``live`` (per step,
+    False on a patch block)."""
     run_ptr = np.asarray(run_ptr, dtype=np.int64)
-    starts, steps = run_ptr[:-1], np.diff(run_ptr)
+    starts = run_ptr[:-1]
+    n_live = np.add.reduceat(np.asarray(live, dtype=np.int64), starts)
     first = [int(np.searchsorted(starts, s)) for s, _ in segments]
     first.append(len(starts))
-    order = [np.arange(a, b)[np.argsort(-steps[a:b], kind="stable")]
+    order = [np.arange(a, b)[np.argsort(-n_live[a:b], kind="stable")]
              for a, b in zip(first[:-1], first[1:])]
     return RowRuns(order=np.concatenate(order).astype(np.int32),
                    first=tuple(first),
-                   fewest=min(b - a for a, b in zip(first[:-1], first[1:])))
+                   fewest=min(b - a for a, b in zip(first[:-1], first[1:])),
+                   live=n_live.astype(np.int32))
 
 
 def row_tiled(B: int, flat) -> bool:
@@ -650,6 +669,9 @@ def _launch_megakernel(x, flat, act: int, fact: int, occ0, occ, out) -> None:
             f"bsr_megakernel: kernel launch failed, CUDA error {-grid}")
     if rows:
         _trace.count("mega.row_tiled")
+        if packed.patch_runs:
+            _trace.count("mega.patch_items",
+                         packed.patch_runs * -(-B // _ROW_BM))
 
 
 #: bytes the caller holds for one launch block (``mega::Block`` in
@@ -661,13 +683,15 @@ _MEGA_BLOCK_BYTES = 512
 class _Packed:
     """One packed launch block of a flat schedule and what its calls need
     beside it: the device it was packed for, the block's address (its
-    memory held by ``block``), the launch entry and the run count."""
+    memory held by ``block``), the launch entry, the run count and, on the
+    row-tiled walk, the patch runs, whose items it writes with no stage."""
 
     device: torch.device
     address: int
     block: ctypes.Array
     launch: Callable
     runs: int
+    patch_runs: int
 
 
 def _pack(flat, key, device: torch.device) -> _Packed:
@@ -703,7 +727,8 @@ def _pack(flat, key, device: torch.device) -> _Packed:
                                f"CUDA error {rc}")
         packed = _Packed(device, ctypes.addressof(block), block,
                          lib.bsr_megakernel_prepared_launch,
-                         flat.run_ptr.numel() - 1)
+                         flat.run_ptr.numel() - 1,
+                         flat.row_runs.patch_runs if rows else 0)
         flat.launch_blocks[key] = packed
     _trace.count("mega.pack")
     return packed

@@ -402,8 +402,8 @@ cudaError_t split_k_walk(const mega::Block& b, const mega::Call& c,
 // 1 bfloat16, 2 float8_e4m3fn.  scales may be null (unit scale).  seg:
 // n_layers + 1 host ints (n_layers <= kMaxLayers), copied: on the split-K
 // walk each layer's first flat step, then the step count; on the row-tiled
-// walk each layer's first entry of run_order (device; every layer's runs,
-// longest first), then the run count.  The split-K walk reads step_run,
+// walk each layer's first entry of run_order (device; every layer's runs
+// by live steps, longest first, a patch run r as ~r), then the run count.  The split-K walk reads step_run,
 // part_off, k_slice, n_slices, max_layer_steps and vec (weight elements
 // per load, 16 bytes' worth or 1); the row-tiled walk reads run_order and
 // takes bs 64 or 128 and, for float32 weights, null scales.  A walk ignores

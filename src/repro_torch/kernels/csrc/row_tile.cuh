@@ -20,10 +20,10 @@
 //
 // What bounds it on the H100.  At B = 4,096 rows a forward of the paper's
 // BERT-large FFNN (1024 -> 4096 -> 1024, density 0.1, 128 x 128 tiles; 66
-// scheduled blocks at the benchmark's layout, 14 of them patch blocks) is
-// 8.9 GFLOP of f32 FMA, 132 us at 67 TFLOP/s, while its bytes (x, y, the
-// hidden activations once each, the weights) take 30 us at 3.35 TB/s: the
-// FMA rate bounds it.  The split-K walk, at this batch, re-read every
+// scheduled blocks at the benchmark's layout, of which this walk multiplies
+// the 52 kept ones and none of the 14 patch blocks) is 7.0 GFLOP of f32
+// FMA, 104 us at 67 TFLOP/s, while its bytes (x, y, the hidden activations
+// once each, the weights) take 30 us at 3.35 TB/s: the FMA rate bounds it.  The split-K walk, at this batch, re-read every
 // weight slice once per 32-row chunk, wrote and read back ~0.55 GB of f32
 // partials through HBM, and reduced four row groups through shared memory
 // behind two barriers per 8-row pass: 2.9 ms a call.
@@ -61,12 +61,22 @@
 // per SM, or runs one CTA per SM), 16- and 32-deep stages, deeper rings,
 // three CTAs per SM and a warp layout of 8 x 4 threads.
 //
-// Balance.  A layer's items are its runs, longest first, each cut into
-// row tiles; CTA j of G takes items j, 2G - 1 - j, 2G + j, ...: forward in
-// even rounds, backward in odd ones, so that the CTAs that drew the
-// longest items draw the shortest next.  At the BERT net and 4,096 rows
-// the busiest CTA then holds 10 steps of layer 0 (mean 9.7) and 7 of
-// layer 1 (mean 6.3).
+// Patch runs.  ops.compile_schedule gives an output tile with no kept
+// block a patch block, a zero block, so that the split-K walk writes its
+// act(bias).  This walk multiplies none: the host flags each patch run in
+// run_order (as ~run, RowRuns.walk_order), and its items take the one empty
+// stage of an item with no live step, whose epilogue writes act(+0 + bias),
+// the bits the zero block's products would give for finite inputs.  So the
+// row-tiled walk's work follows the kept blocks alone: 52 of the BERT
+// net's 66 steps and 24 of the MLP's 38.
+//
+// Balance.  A layer's items are its runs by live steps, longest first
+// (patch runs last), each cut into row tiles; CTA j of G takes items j,
+// 2G - 1 - j, 2G + j, ...: forward in even rounds, backward in odd ones,
+// so that the CTAs that drew the longest items draw the shortest next, and
+// the epilogue-only patch items fall to the CTAs that would otherwise wait
+// at the barrier.  At the BERT net and 4,096 rows the busiest CTA then
+// holds 8 live steps of layer 0 (mean 6.3) and 7 of layer 1 (mean 6.3).
 //
 // Layers are separated by a grid-wide barrier, split as in the split-K
 // walk: between its arrival and its wait an ungated CTA issues the weight
@@ -245,7 +255,9 @@ struct RowParams {
   const int* rows;          // [n_steps] layer-local input tile
   const int* cols;          // [n_steps] layer-local output tile
   const int* run_ptr;       // [n_runs + 1] first step of every run
-  const int* run_order;     // [n_runs] every layer's runs, longest first
+  // [n_runs] every layer's runs by live steps, longest first; a patch run
+  // r (no live step) as ~r, last
+  const int* run_order;
   const int* bias_idx;      // [n_steps] row of bias_tiles
   const float* bias_tiles;  // [sum of grid_out, bs]
   const float* scales;      // [n_steps] dequant factors (not for f32), or null
@@ -262,8 +274,8 @@ struct RowParams {
 
 // Where a CTA's walk of one layer stands: its n-th item (run, row tile
 // from b0) and, in it, step g's K-rows k0 .. k0 + kRowBK - 1.  g < 0 marks
-// the one empty stage of an item whose steps are all dead (gated), which
-// still writes act(bias).
+// the one empty stage of an item with no live step (a patch run's, or one
+// whose steps are all dead, gated), which still writes act(bias).
 struct RowCursor {
   int n, run, b0, g, g1, k0;
   bool done;
@@ -310,12 +322,13 @@ struct RowWalk {
       const int i = n * G + ((n & 1) ? G - 1 - j : j);
       if (i >= n_items) continue;
       const int q = i / nt;
+      const int r = __ldg(run_order + run0 + q);
       c.n = n;
       c.done = false;
-      c.run = __ldg(run_order + run0 + q);
+      c.run = r < 0 ? ~r : r;
       c.b0 = (i - q * nt) * kRowBM;
       c.g1 = __ldg(run_ptr + c.run + 1);
-      c.g = next_live(__ldg(run_ptr + c.run), c.g1);
+      c.g = r < 0 ? c.g1 : next_live(__ldg(run_ptr + c.run), c.g1);
       if (c.g == c.g1) c.g = -1;
       c.k0 = 0;
       return;
@@ -540,14 +553,15 @@ __global__ void __launch_bounds__(kRowThreads, 2)
     if (is_final) break;
     // layer k's hidden tiles (and slots) are complete once the barrier is
     // passed; between its arrival and its wait, an ungated CTA issues the
-    // weights of its first stage of layer k + 1
+    // weights of its first stage of layer k + 1, unless that item is a
+    // patch run's, which has no stage
     __syncthreads();  // every thread is done with the buffers
     cg::grid_group::arrival_token token = grid.barrier_arrive();
     if constexpr (!Gate) {
       const RowWalk<false, BS> W(p, k + 1, nullptr);
       RowCursor c;
       W.enter(c, 0);
-      w_issued = !c.done;
+      w_issued = !c.done && c.g >= 0;
       if (w_issued)
         rt_issue_w<WT, BS>(ring + kRowXBytes,
                            static_cast<const WT*>(p.blocks) +

@@ -119,6 +119,9 @@ class CompiledSchedule:
     scales: Optional[torch.Tensor] = None
     weight_dtype: str = "f32"
     run_ptr: Optional[torch.Tensor] = None   # int32 [grid_out + 1]
+    # the patch blocks: the last ``n_patch`` steps, one per output tile with
+    # no kept block, each a run of its own
+    n_patch: int = 0
     # bsr_matmul's work decomposition, its (step_run, part_off) rows as an
     # int32 [2, nnz'] tensor on the device, and its per-run arrival counters
     # (zero between launches; grown by the wrapper for larger batches)
@@ -200,6 +203,7 @@ def compile_schedule(
         scales=None if scales is None else _on(device, scales),
         weight_dtype=resolve_weight_dtype(weight_dtype),
         run_ptr=_on(device, run_ptr),
+        n_patch=len(missing),
         split=split,
         split_index=_on(device, np.stack([split.step_run, split.part_off])),
         arrivals=torch.zeros(layer.grid_out, dtype=torch.int32,
@@ -230,12 +234,13 @@ class FlatSchedule:
     arrival counters (zero between launches; grown by the wrapper for
     larger batches).  ``row_runs`` is the row-tiled route's deal of the
     runs (``bsr_matmul.RowRuns``), ``row_order`` its run order on the
-    device.  ``slots`` and ``epoch`` are the gated launch's
-    per-(layer, tile, row chunk) live-row counts, each tagged with the
-    launch that wrote it.  ``launch_blocks`` holds the megakernel's packed
-    launch blocks (one per walk, x dtype, width and epilogues: what its
-    launches share, built at the first of them) and ``scratch`` its f32
-    scratch, grown to the largest call and reused by every later one.
+    device, a patch run flagged (``RowRuns.walk_order``).  ``slots`` and
+    ``epoch`` are the gated launch's per-(layer, tile, row chunk) live-row
+    counts, each tagged with the launch that wrote it.  ``launch_blocks``
+    holds the megakernel's packed launch blocks (one per walk, x dtype,
+    width and epilogues: what its launches share, built at the first of
+    them) and ``scratch`` its f32 scratch, grown to the largest call and
+    reused by every later one.
     ``lock`` guards all of these across threads; ``dataclasses.replace``
     gives the copy blocks and scratch of its own.
 
@@ -390,7 +395,9 @@ def compile_flat_schedule(
     run_ptr = _run_ptr(first)
     blocks = torch.cat([sch.blocks for sch in schedules])
     split = split_plan(run_ptr, bs, bs, blocks.element_size())
-    runs = row_runs(run_ptr, segments)
+    live = np.concatenate([np.arange(e - s) < e - s - sch.n_patch
+                           for (s, e), sch in zip(segments, schedules)])
+    runs = row_runs(run_ptr, segments, live)
 
     hidden_tiles = max([lay.grid_out for lay in layers[:-1]] or [1])
     return FlatSchedule(
@@ -420,7 +427,7 @@ def compile_flat_schedule(
         arrivals=torch.zeros(len(run_ptr) - 1, dtype=torch.int32,
                              device=device),
         row_runs=runs,
-        row_order=_on(device, runs.order),
+        row_order=_on(device, runs.walk_order()),
     )
 
 

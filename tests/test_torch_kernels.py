@@ -593,10 +593,10 @@ def test_cuda_bsr_matmul_ragged_blocks_match_plain(cuda_device, sizes, block,
 ROW_NETS = {"bert": ((1024, 4096, 1024), 128), "mlp": ((512,) * 5, 64)}
 
 
-def row_net(kind, wdt="f32", device="cpu", dead_hidden=False):
-    """A flat schedule of one of ``ROW_NETS``, with weights and biases of
-    N(0, 0.03^2); ``dead_hidden`` sets every other hidden output tile's
-    bias to -10, so that relu kills it."""
+def row_layers(kind, dead_hidden=False, density=0.1):
+    """The layers of one of ``ROW_NETS`` pruned to ``density``, with weights
+    and biases of N(0, 0.03^2); ``dead_hidden`` sets every other hidden
+    output tile's bias to -10, so that relu kills it."""
     from repro_torch.sparse import prune_dense_stack
 
     sizes, block = ROW_NETS[kind]
@@ -608,11 +608,34 @@ def row_net(kind, wdt="f32", device="cpu", dead_hidden=False):
     if dead_hidden:
         for b in bs[:-1]:
             b.reshape(-1, block)[::2] = -10.0
-    layers = prune_dense_stack(ws, bs, density=0.1, block_m=block,
-                               block_n=block)
+    return prune_dense_stack(ws, bs, density=density, block_m=block,
+                             block_n=block)
+
+
+def late_patch_layers():
+    """512 -> 1024 -> 512 in 64-wide blocks, whose second layer keeps
+    blocks in two of its eight output tiles only: at any B that takes the
+    row-tiled walk, some CTA's first item of that layer is a patch item."""
+    from repro_torch.sparse import prune_dense_stack
+
+    rng = np.random.default_rng(2)
+    ws = [rng.standard_normal((512, 1024)).astype(np.float32) * 0.03,
+          rng.standard_normal((1024, 512)).astype(np.float32) * 0.03]
+    ws[1][:, 128:] = 0.0
+    bs = [rng.standard_normal(n).astype(np.float32) * 0.03
+          for n in (1024, 512)]
+    return prune_dense_stack(ws, bs, density=0.1, block_m=64, block_n=64)
+
+
+def row_flat(layers, wdt="f32", device="cpu"):
     schs = [tops.compile_schedule(l, np.lexsort((l.rows, l.cols)), wdt,
                                   device=device) for l in layers]
     return tops.compile_flat_schedule(layers, schs)
+
+
+def row_net(kind, wdt="f32", device="cpu", dead_hidden=False):
+    """A flat schedule of one of ``ROW_NETS`` (``row_layers``)."""
+    return row_flat(row_layers(kind, dead_hidden), wdt, device)
 
 
 def row_crossover(flat):
@@ -635,14 +658,15 @@ def test_row_tiled_route_rule(kind, B):
         hidden + (0 if rows else parts)
     runs = flat.row_runs
     run_ptr = flat.run_ptr.numpy()
-    np.testing.assert_array_equal(flat.row_order.numpy(), runs.order)
+    np.testing.assert_array_equal(flat.row_order.numpy(), runs.walk_order())
     for k, (s, e) in enumerate(flat.segments):
         layer = runs.order[runs.first[k]:runs.first[k + 1]]
         assert sorted(layer) == list(range(runs.first[k], runs.first[k + 1]))
         assert run_ptr[runs.first[k]] == s and \
             run_ptr[runs.first[k + 1]] == e
-        steps = run_ptr[layer + 1] - run_ptr[layer]
-        assert list(steps) == sorted(steps, reverse=True)
+        live = runs.live[layer]
+        assert list(live) == sorted(live, reverse=True)
+        assert (live <= run_ptr[layer + 1] - run_ptr[layer]).all()
 
 
 def row_deal(n_items, grid):
@@ -659,8 +683,9 @@ def row_deal(n_items, grid):
 @pytest.mark.parametrize("kind", sorted(ROW_NETS))
 def test_row_tiled_deal_covers_every_item_once(kind, B):
     """Every (run, row tile) of every layer is one CTA's, each CTA's items
-    come longest first, and the busiest CTA is within one longest item of
-    the mean (2 CTAs on each of the H100's 132 SMs)."""
+    come longest first by live steps (a patch item has none), and the
+    busiest CTA is within one longest item of the mean (2 CTAs on each of
+    the H100's 132 SMs)."""
     flat = row_net(kind)
     nt = -(-B // K._ROW_BM)
     runs = flat.row_runs
@@ -675,11 +700,95 @@ def test_row_tiled_deal_covers_every_item_once(kind, B):
         item_run = runs.order[runs.first[k] + np.arange(n_items[k]) // nt]
         assert len({(int(r), i % nt) for i, r in enumerate(item_run)}) == \
             n_items[k]
-        cost = run_ptr[item_run + 1] - run_ptr[item_run]
+        cost = runs.live[item_run]
+        assert (cost <= run_ptr[item_run + 1] - run_ptr[item_run]).all()
         for mine in deal:
             assert list(cost[mine]) == sorted(cost[mine], reverse=True)
         busiest = max(cost[mine].sum() for mine in deal)
         assert busiest <= cost.sum() / grid + cost.max()
+
+
+# nets whose schedules have patch runs: the benchmark's two, and one whose
+# second layer starts some CTAs on a patch item
+PATCH_NETS = {"bert": lambda: row_layers("bert"),
+              "mlp": lambda: row_layers("mlp"),
+              "late": late_patch_layers}
+
+
+@pytest.mark.parametrize("net", sorted(PATCH_NETS))
+def test_row_tiled_patch_runs_are_the_patched_tiles(net):
+    """The runs with no live step are exactly the output tiles that
+    ``compile_schedule`` patched, layer by layer: one zero block each,
+    dealt after every run that keeps a block and flagged ``~run`` in the
+    order the kernel reads."""
+    layers = PATCH_NETS[net]()
+    flat = row_flat(layers)
+    runs = flat.row_runs
+    run_ptr, cols = flat.run_ptr.numpy(), flat.cols.numpy()
+    walk = flat.row_order.numpy()
+    patched = 0
+    for k, layer in enumerate(layers):
+        a, b = runs.first[k], runs.first[k + 1]
+        empty = sorted(set(range(layer.grid_out)) - set(layer.cols.tolist()))
+        patch = [r for r in range(a, b) if runs.live[r] == 0]
+        assert sorted(int(cols[run_ptr[r]]) for r in patch) == empty
+        for r in patch:
+            assert run_ptr[r + 1] - run_ptr[r] == 1
+            assert not flat.blocks[run_ptr[r]].float().any()
+        order = runs.order[a:b]
+        assert sorted(order[b - a - len(patch):]) == patch
+        np.testing.assert_array_equal(walk[a:b] < 0, np.isin(order, patch))
+        np.testing.assert_array_equal(np.where(walk[a:b] < 0, ~walk[a:b],
+                                               walk[a:b]), order)
+        patched += len(empty)
+    assert runs.patch_runs == patched > 0
+
+
+def test_row_tiled_runs_without_an_empty_tile_have_no_patch_run():
+    """A net whose every output tile keeps a block has no patch run: every
+    step is live, and each layer's runs are dealt by their step counts,
+    longest first, ties in schedule order, unflagged."""
+    layers = row_layers("mlp", density=0.5)
+    assert all(set(l.cols.tolist()) == set(range(l.grid_out))
+               for l in layers)
+    flat = row_flat(layers)
+    runs = flat.row_runs
+    steps = np.diff(flat.run_ptr.numpy())
+    assert runs.patch_runs == 0
+    np.testing.assert_array_equal(runs.live, steps)
+    by_steps = np.concatenate([
+        np.arange(a, b)[np.argsort(-steps[a:b], kind="stable")]
+        for a, b in zip(runs.first[:-1], runs.first[1:])])
+    np.testing.assert_array_equal(runs.order, by_steps)
+    np.testing.assert_array_equal(flat.row_order.numpy(), by_steps)
+
+
+def test_row_tiled_counts_its_patch_items(monkeypatch):
+    """While tracing is active each row-tiled launch, gated or not, adds
+    its patch items (patch runs, counted when its block was packed, x 64-row
+    tiles) to ``mega.patch_items``, once; a split-K launch adds none."""
+    from repro_torch.obs import trace
+    from repro_torch.obs.trace import Tracer
+
+    flat = row_net("mlp")
+    monkeypatch.setattr(K._build, "load", lambda: FakeLib())
+    monkeypatch.setattr(K, "_stream", lambda index: 0)
+    occ0 = torch.ones(8, dtype=torch.int32)
+    before = trace.totals()["counters"].get("mega.patch_items", 0)
+    tracer = Tracer()
+    for B, gate in ((32, False), (4096, False), (65, True), (4096, True)):
+        occ = torch.empty((3, 8), dtype=torch.int32) if gate else None
+        with tracer.span(str(B)):
+            K._launch_megakernel(torch.zeros((B, 512)), flat, 2, 0,
+                                 occ0 if gate else None, occ,
+                                 torch.empty((B, 512)))
+    got = [sp.attrs.get("mega.patch_items", 0) for sp in tracer.spans()]
+    assert flat.row_runs.patch_runs == 14
+    assert [p.patch_runs for p in flat.launch_blocks.values()] == [0, 14]
+    assert got == [0, 14 * 64, 14 * 2, 14 * 64]
+    assert trace.totals()["counters"]["mega.patch_items"] == \
+        before + sum(got)
+    K.reset_launches()
 
 
 def test_row_tiled_launch_bookkeeping(monkeypatch):
@@ -871,6 +980,7 @@ def test_cuda_row_tiled_gated_bit_equal(cuda_device, kind):
     from repro_torch.engine import tile_occupancy
 
     flat = row_net(kind, "f32", cuda_device, dead_hidden=True)
+    assert flat.row_runs.patch_runs > 0
     (n_in, *_), block = ROW_NETS[kind]
     x = torch.randn((4096, n_in), generator=torch.Generator().manual_seed(1))
     x.reshape(4096, -1, block)[:, ::2] = 0.0
@@ -887,6 +997,65 @@ def test_cuda_row_tiled_gated_bit_equal(cuda_device, kind):
     assert (K.bsr_megakernel.gated_launches, K.bsr_megakernel.launches,
             K.bsr_megakernel.row_tiled_launches) == (1, 1, 2)
     assert not flat.arrivals.any()
+    K.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(ROW_NETS))
+def test_cuda_row_tiled_patched_tiles_are_act_bias(cuda_device, kind):
+    """At 4,096 rows every output tile that ``compile_schedule`` patched
+    holds relu(bias) exactly in every row, in each layer of the net: the
+    net cut after layer k writes layer k's as its output and leaves layer
+    k - 1's in its hidden scratch."""
+    layers = row_layers(kind)
+    block = ROW_NETS[kind][1]
+    B = 4096
+    x = torch.randn((B, layers[0].n_in),
+                    generator=torch.Generator().manual_seed(5))
+    x = x.to(cuda_device)
+
+    def patched(layer, y):
+        for t in sorted(set(range(layer.grid_out)) - set(layer.cols.tolist())):
+            want = torch.relu(torch.from_numpy(
+                layer.bias[t * block:(t + 1) * block])).expand(B, block)
+            assert torch.equal(y(t).cpu(), want)
+
+    K.reset_launches()
+    for k in range(len(layers)):
+        flat = row_flat(layers[:k + 1], "f32", cuda_device)
+        out = K.bsr_megakernel(x, flat, "relu", "relu")
+        patched(layers[k], lambda t: out[:, t * block:(t + 1) * block])
+        if k:
+            hidden = flat.scratch[:2 * flat.hidden_tiles * B * block].view(
+                2, flat.hidden_tiles, B, block)[(k - 1) % 2]
+            patched(layers[k - 1], lambda t: hidden[t])
+    assert K.bsr_megakernel.row_tiled_launches == len(layers)
+    K.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", (65, 4096))
+def test_cuda_row_tiled_patch_item_first_after_the_barrier(cuda_device, B):
+    """Some CTA starts the second layer of ``late_patch_layers`` on a patch
+    item, whose stage it must not issue across the barrier: the output
+    within 1e-4 of the plain version and the gated walk's bit-equal to
+    it."""
+    flat = row_flat(late_patch_layers(), "f32", cuda_device)
+    runs = flat.row_runs
+    live_items = np.count_nonzero(runs.live[runs.first[1]:runs.first[2]]) \
+        * -(-B // K._ROW_BM)
+    x = torch.randn((B, 512), generator=torch.Generator().manual_seed(4))
+    x = x.to(cuda_device)
+    K.reset_launches()
+    y = K.bsr_megakernel(x, flat, "relu", "none")
+    assert K.bsr_megakernel.row_tiled_launches == 1
+    assert K.bsr_megakernel.grid > live_items    # CTA live_items: a patch item
+    y_ref = K.bsr_megakernel_plain(x, flat, "relu", "none")
+    assert err(y.cpu(), y_ref.cpu()) < 1e-4
+    occ0 = torch.full((8,), B, dtype=torch.int32, device=cuda_device)
+    yg, _ = K.bsr_megakernel(x, flat, "relu", "none", gate=True, occ0=occ0)
+    assert torch.equal(yg, y)
+    assert K.bsr_megakernel.row_tiled_launches == 2
     K.reset_launches()
 
 
