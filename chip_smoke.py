@@ -44,8 +44,12 @@ Phases, each of which must pass (any failure exits non-zero):
      megakernel again at the offline benchmark cells' 4,096 rows on both
      benchmark nets' widths (the BERT FFNN and the 512-wide, 4-layer MLP
      of 64 x 64 blocks), f32, with the walk it took (``phase_times_large``,
-     which also runs alone against another tree's ``src``); then one
-     profiled serving window, for the device's busy share;
+     which also runs alone against another tree's ``src``); the same on
+     the benchmark's gate/up pair net (MiniCPM-SALA's FFN, 4096 -> 16384
+     -> 4096) at 4,096 and 32 rows, against its plain version and the
+     dense chain, with its launch and pair-step counts
+     (``phase_times_glu``); then one profiled serving window, for the
+     device's busy share;
   6. ``moe_ffn`` against its plain version at the expert widths of
      Granite-3.0-1B-A400M (E = 32, C = 640, d = 1024, f = 512, gelu), f32
      and bf16, f_tile 128 and 512, and bf16 with the other row tile (64
@@ -244,6 +248,13 @@ GLOO_TIMEOUT_S = 300.0
 LARGE_B = 4096
 LARGE_NETS = {"bert-ffnn": ([1024, 4096, 1024], 128, "gelu"),
               "random-mlp-512x5": ([512] * 5, 64, "relu")}
+# and on the gate/up pair net of the benchmark's minicpm-sala-ffn: one
+# decoder layer's SwiGLU FFN of MiniCPM-SALA, gate and up 4096 -> 16384
+# (one pair layer, silu gate), down 16384 -> 4096, 128 x 128 blocks at
+# DENSITY, no biases, weight std 1 / sqrt(DENSITY * n_in); at the offline
+# cell's rows (row-tiled walk) and at 32 (split-K)
+GLU_NET = ("minicpm-sala-ffn", [4096, 16384, 4096], 128, "silu")
+GLU_BATCHES = (LARGE_B, 32)
 # H100 SXM data-sheet peaks: HBM bytes/s, f32 FMA operations/s outside the
 # tensor cores (the kernels' arithmetic) and bf16 tensor-core operations/s.
 # phase 9: LM serving; reduced archs at --batch 4 --prompt-len 32 --gen 16
@@ -1115,6 +1126,91 @@ def phase_times_large():
         print("time: " + json.dumps(row), flush=True)
         rows.append(row)
         del x, y, dense
+    return rows
+
+
+def phase_times_glu():
+    """The megakernel on GLU_NET's pair net (f32) at each of GLU_BATCHES:
+    one launch, on the walk the rows choose, within TOL of its plain
+    version, with the pair steps staged that the schedule says
+    (``mega.glu_pairs``); timed as ``phase_times_large`` times, beside the
+    dense chain addmm (gate), addmm (up), silu * product, addmm (down) on
+    the pruned weights.  The bound counts the kept pairs twice and the
+    down blocks on live hidden tiles once (with no biases a hidden tile
+    that no pair writes is zero), as the benchmark's roofline does."""
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.kernels.ref import bsr_to_dense
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.sparse import prune_glu_ffn
+
+    name, sizes, block, act = GLU_NET
+    n, f, _ = sizes
+    rng = np.random.default_rng(0)
+    w = [rng.standard_normal(shape, dtype=np.float32)
+         * np.float32(1 / math.sqrt(DENSITY * shape[0]))
+         for shape in ((n, f), (n, f), (f, n))]
+    pair, down = layers = prune_glu_ffn(*w, DENSITY, block)
+    del w
+    plan = Engine(activation=act, reorder=True, reorder_iters=REORDER_ITERS,
+                  device="cuda").compile(layers)
+    check(plan.fused and plan.flat.has_pairs,
+          f"{name}: the plan did not fuse its pair layer")
+    flat = plan.flat
+    dense = [bsr_to_dense(lay.rows, lay.cols, torch.as_tensor(blk).cuda(),
+                          lay.grid_in, lay.grid_out)
+             for lay, blk in ((pair, pair.blocks[:, :, :block]),
+                              (pair, pair.blocks[:, :, block:]),
+                              (down, down.blocks))]
+    b_gate, b_up = torch.as_tensor(pair.wide_bias()).cuda().split(f)
+    b_down = torch.as_tensor(down.bias).cuda()
+    fn = K.ACTIVATIONS[act]
+    live_down = int(np.isin(down.rows, pair.cols).sum())
+    kept = 2 * pair.nnz_blocks + live_down
+    rows = []
+    for B in GLU_BATCHES:
+        x = torch.from_numpy(np.random.default_rng(B).standard_normal(
+            (B, n)).astype(np.float32)).cuda()
+        walk = bool(K.row_tiled(B, flat))
+        want = flat.row_runs.pair_steps * -(-B // K._ROW_BM) if walk \
+            else flat.pair_steps * -(-B // K._ROWS_PER_CTA)
+        tracer = Tracer()
+        K.reset_launches()
+        with tracer.span("glu"):
+            y = K.bsr_megakernel(x, flat, act, "none")
+        torch.cuda.synchronize()
+        launches = (K.bsr_megakernel.launches,
+                    K.bsr_megakernel.row_tiled_launches)
+        glu = tracer.spans()[0].attrs
+        got = (glu.get("mega.glu_launches"), glu.get("mega.glu_pairs"))
+        check(launches == (1, int(walk)),
+              f"{name} B={B}: launches {launches}, want (1, {int(walk)})")
+        check(got == (1, want),
+              f"{name} B={B}: pair counters {got}, want (1, {want})")
+        check(flat.arrivals is None or not flat.arrivals.any(),
+              f"{name} B={B}: arrival counters not zero after the launch")
+        err, _ = rel_err(y, K.bsr_megakernel_plain(x, flat, act, "none"))
+        check(err < TOL[torch.float32],
+              f"bsr_megakernel {name} B={B}: error {err:.3e}")
+
+        def chain():
+            h = fn(torch.addmm(b_gate, x, dense[0])) \
+                * torch.addmm(b_up, x, dense[1])
+            return torch.addmm(b_down, h, dense[2])
+
+        nbytes = 4 * (x.numel() + B * n + kept * block * block + 2 * f + n)
+        row = timed("bsr_megakernel", "f32",
+                    f"{name}, gate/up pairs, B={B}",
+                    lambda: K.bsr_megakernel(x, flat, act, "none"),
+                    lambda: K.bsr_megakernel_plain(x, flat, act, "none"),
+                    chain, *bound_ms(nbytes, 2 * B * block * block * kept))
+        row.update(walk="row-tiled" if walk else "split-K",
+                   grid=K.bsr_megakernel.grid, max_rel_err=err,
+                   glu_pairs=got[1], pairs=pair.nnz_blocks,
+                   down_live=live_down, down_kept=down.nnz_blocks)
+        print("time: " + json.dumps(row), flush=True)
+        rows.append(row)
+        del x, y
     return rows
 
 
@@ -3865,6 +3961,7 @@ def main() -> int:
         launches["bsr_megakernel_gated"] = phase_gated_main_path()
         entries = phase_times(plans, rng)
         phase_times_large()
+        phase_times_glu()
         phase_trace(server, args)
         launches["moe_ffn"], main_err["moe_ffn"], entries["moe_ffn"] = \
             phase_moe()

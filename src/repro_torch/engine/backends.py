@@ -25,6 +25,12 @@ gather; both stay bit-identical to the ungated forward.
 ``make_sharded_forward`` lowers a sharded plan (``engine.sharding``): per
 layer one ``bsr_matmul`` launch per model shard on ``kernel``, the segment
 lowering on ``torch``, as a loop on one device or one shard per process.
+
+A gate/up pair layer (``sparse.layers.GLULayer``) is one step kind more:
+fused, the megakernel and the segment lowering walk its pair steps and
+write ``act(gate + bg) * (up + bu)`` once; layered, one ``bsr_matmul`` (or
+segment pass) runs its ``[gate | up]`` layer with no epilogue and the
+product follows in plain PyTorch (:func:`glu`).
 """
 
 from __future__ import annotations
@@ -42,8 +48,14 @@ from ..kernels.bsr_matmul import (
     apply_activation,
     bsr_matmul,
     bsr_megakernel,
+    check_pair_x,
 )
-from ..kernels.ops import CompiledSchedule, FlatSchedule
+from ..kernels.ops import (
+    CompiledSchedule,
+    FlatSchedule,
+    is_pair,
+    wide_schedule,
+)
 
 BACKENDS = ("kernel", "torch")
 
@@ -96,6 +108,12 @@ def _check_kernel_activations(activations: Sequence[Activation]) -> None:
 # per-layer dispatch (layered path + fallback for non-uniform tiles)
 # --------------------------------------------------------------------------- #
 
+def glu(y: torch.Tensor, activation: Activation, n: int) -> torch.Tensor:
+    """``act(y[..., :n]) * y[..., n:]``: a pair layer's epilogue on the
+    output of its ``[gate | up]`` layer (biases added)."""
+    return apply_activation(y[..., :n], activation) * y[..., n:]
+
+
 def _torch_segment(
     x: torch.Tensor,
     rows: torch.Tensor,
@@ -109,6 +127,7 @@ def _torch_segment(
     activation: Activation,
     occ: Optional[torch.Tensor] = None,
     scales: Optional[torch.Tensor] = None,
+    pair: bool = False,
 ) -> torch.Tensor:
     """One schedule segment as gather -> block product -> segment sum.
 
@@ -120,6 +139,10 @@ def _torch_segment(
     ``occ`` ([grid_in] int32, from :func:`tile_occupancy`) masks the gather:
     a step whose input tile is dead contributes a hard zero instead of its
     (already all +-0) tile, which leaves every bit of the result as it was.
+
+    ``pair``: the segment's steps are pair steps ([bm, 2 * bn] blocks, two
+    bias tiles per output tile, the gate's then the up's), and an output
+    tile is ``act(gate + bg) * (up + bu)``.
     """
     B = x.shape[0]
     xt = x.float().reshape(B, grid_in, bm).transpose(0, 1)        # [gi, B, bm]
@@ -131,6 +154,12 @@ def _torch_segment(
     if scales is not None:
         w = w * scales[:, None, None]
     contrib = torch.bmm(gathered, w)                              # [nnz, B, bn]
+    if pair:                                               # [nnz, B, 2 bn]
+        y = torch.zeros((grid_out, B, 2 * bn), dtype=torch.float32,
+                        device=x.device)
+        y.index_add_(0, cols.long(), contrib)
+        y = y.transpose(0, 1) + bias.float().reshape(grid_out, 2 * bn)
+        return glu(y, activation, bn).reshape(B, grid_out * bn).to(x.dtype)
     y = torch.zeros((grid_out, B, bn), dtype=torch.float32, device=x.device)
     y.index_add_(0, cols.long(), contrib)
     y = y.transpose(0, 1).reshape(B, grid_out * bn) + bias.float()
@@ -151,7 +180,9 @@ def make_forward(
     express (non-uniform tiles) or the megakernel cannot fuse (mixed hidden
     epilogues).  ``gate`` masks each layer's gather on the ``torch``
     backend only: ``bsr_matmul`` has no occupancy gating (the engine records
-    that on the plan's fallback reason).
+    that on the plan's fallback reason).  A pair layer runs its ``[gate |
+    up]`` layer (``ops.wide_schedule``, built here) with no epilogue, then
+    :func:`glu`.
     """
     layers = list(layers)
     schedules = list(schedules)
@@ -160,14 +191,31 @@ def make_forward(
     if backend == "kernel":
         _check_kernel_activations(activations)
     device = schedules[0].blocks.device
-    biases = [torch.as_tensor(lay.bias, dtype=torch.float32).to(device)
+    biases = [torch.as_tensor(lay.wide_bias() if is_pair(lay) else lay.bias,
+                              dtype=torch.float32).to(device)
               for lay in layers]
+    wides = [wide_schedule(sch, lay.n_in) if sch.pair else None
+             for lay, sch in zip(layers, schedules)]
+    pairs = any(sch.pair for sch in schedules)
 
     def forward(x):
+        if pairs:
+            check_pair_x(x.dtype)
         h = x
-        for layer, sch, act, bias in zip(layers, schedules, activations,
-                                         biases):
-            if backend == "torch":
+        for layer, sch, act, bias, wide in zip(layers, schedules,
+                                               activations, biases, wides):
+            if wide is not None:
+                if backend == "torch":
+                    occ = tile_occupancy(h, layer.block_m, layer.grid_in) \
+                        if gate else None
+                    y = _torch_segment(h, wide.rows, wide.cols, wide.blocks,
+                                       bias, layer.block_m, layer.block_n,
+                                       layer.grid_in, wide.grid_out, None,
+                                       occ=occ, scales=wide.scales)
+                else:
+                    y = bsr_matmul(h, wide, bias, None)
+                h = glu(y, act, layer.n_out)
+            elif backend == "torch":
                 occ = tile_occupancy(h, layer.block_m, layer.grid_in) \
                     if gate else None
                 h = _torch_segment(h, sch.rows, sch.cols, sch.blocks, bias,
@@ -202,14 +250,16 @@ def _flat_segments(layers, flat: FlatSchedule, activations) -> List[tuple]:
     """Per-layer views of the flat arrays, materialized once."""
     segs = []
     bias_row = 0
+    pairs = flat.pairs
     for k, (s, e) in enumerate(flat.segments):
         lay = layers[k]
-        bias = flat.bias_tiles[bias_row:bias_row + lay.grid_out].reshape(-1)
+        n_bias = (2 if pairs[k] else 1) * lay.grid_out
+        bias = flat.bias_tiles[bias_row:bias_row + n_bias].reshape(-1)
         scales = None if flat.scales is None else flat.scales[s:e]
-        segs.append((flat.rows[s:e], flat.cols[s:e], flat.blocks[s:e],
+        segs.append((flat.rows[s:e], flat.cols[s:e], flat.layer_blocks(k),
                      scales, bias, lay.grid_in, lay.grid_out,
-                     activations[k]))
-        bias_row += lay.grid_out
+                     activations[k], pairs[k]))
+        bias_row += n_bias
     return segs
 
 
@@ -237,11 +287,13 @@ def make_fused_forward(
         segs = _flat_segments(layers, flat, activations)
 
         def forward_torch(x):
+            if flat.has_pairs:
+                check_pair_x(x.dtype)
             h = x
-            for rows, cols, blocks, scales, bias, gi, go, a in segs:
+            for rows, cols, blocks, scales, bias, gi, go, a, pair in segs:
                 occ = tile_occupancy(h, bs, gi) if gate else None
                 h = _torch_segment(h, rows, cols, blocks, bias, bs, bs, gi,
-                                   go, a, occ=occ, scales=scales)
+                                   go, a, occ=occ, scales=scales, pair=pair)
             return h
 
         return forward_torch
@@ -287,11 +339,11 @@ def make_fused_measure(
         def measure_torch(x):
             h = x
             occs = []
-            for rows, cols, blocks, scales, bias, gi, go, a in segs:
+            for rows, cols, blocks, scales, bias, gi, go, a, pair in segs:
                 occ = tile_occupancy(h, bs, gi)
                 occs.append(occ)
                 h = _torch_segment(h, rows, cols, blocks, bias, bs, bs, gi,
-                                   go, a, occ=occ, scales=scales)
+                                   go, a, occ=occ, scales=scales, pair=pair)
             return h, tuple(occs)
 
         return measure_torch

@@ -17,6 +17,12 @@ so orders, schedule arrays and I/O reports equal the JAX package's.  Plans
 are cached: compiling the same layers with the same settings returns the
 same plan object.  With a ``mesh`` the net is partitioned into one plan
 per model shard (``engine.sharding``).
+
+A net may hold gate/up pair layers (``sparse.layers.GLULayer``): the core
+sees each as the block DAG of its pair mask, so the Theorem-1 order and
+Connection Reordering run on pairs unchanged, and the kernels walk a pair
+as one step (``kernels.ops``).  Such a net compiles ungated, unsharded and
+in float32 (weights and x) only; anything else raises at compile.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ..kernels.bsr_matmul import ACTIVATIONS as _KERNEL_ACTIVATIONS
 from ..kernels.ops import (
     compile_flat_schedule,
     compile_schedule,
+    is_pair,
     resolve_weight_dtype,
 )
 from ..obs.trace import NULL_TRACER
@@ -161,6 +168,7 @@ class Engine:
         """
         bffnn = net if isinstance(net, BlockFFNN) else to_block_ffnn(list(net))
         backend = resolve_backend(backend or self.backend)
+        self._check_pairs(bffnn, mesh)
         key = self._plan_key(bffnn, backend) + self._mesh_key(mesh)
         plan = self._cache.get(key)
         if plan is None:
@@ -183,6 +191,7 @@ class Engine:
         plan."""
         bffnn = net if isinstance(net, BlockFFNN) else to_block_ffnn(list(net))
         backend = resolve_backend(backend or self.backend)
+        self._check_pairs(bffnn, None)
         return self._build(bffnn, backend, order=np.asarray(order), io=io)
 
     def compile_sharded_with_orders(
@@ -198,8 +207,31 @@ class Engine:
         iterations, deterministic (the plan store's warm path)."""
         bffnn = net if isinstance(net, BlockFFNN) else to_block_ffnn(list(net))
         backend = resolve_backend(backend or self.backend)
+        self._check_pairs(bffnn, mesh)
         return build_sharded_plan(self, bffnn, backend, mesh,
                                   orders=list(orders), ios=ios)
+
+    def _check_pairs(self, bffnn: BlockFFNN, mesh: Optional[Mesh]) -> None:
+        """Refuse what a net with a gate/up pair layer cannot run: gating,
+        a mesh, narrow weights, and weights or inputs other than float32."""
+        if not any(is_pair(lay) for lay in bffnn.layers):
+            return
+        why = None
+        if self.gate:
+            why = "gate=True (occupancy gating)"
+        elif mesh is not None:
+            why = f"a mesh ({mesh.model}x{mesh.data})"
+        elif resolve_weight_dtype(self.weight_dtype) != "f32":
+            why = f"weight_dtype={self.weight_dtype!r}"
+        else:
+            dtypes = {np.asarray(lay.blocks).dtype for lay in bffnn.layers}
+            if dtypes != {np.dtype(np.float32)}:
+                why = f"weights and x of dtype {sorted(map(str, dtypes))}"
+        if why is not None:
+            raise ValueError(
+                f"a net with a gate/up pair layer cannot compile with {why}: "
+                "it runs ungated, unsharded, with float32 weights and float32 "
+                "x")
 
     @staticmethod
     def _mesh_key(mesh: Optional[Mesh]) -> Tuple:

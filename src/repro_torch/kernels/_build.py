@@ -43,9 +43,12 @@ _SIGNATURES = {
     # block (out), capacity, row_tiled, x_dtype, w_dtype, vec, blocks, rows,
     # cols, run_ptr, step_run, part_off, run_order, bias_idx, bias_tiles,
     # scales, n_in, n_out, bs, n_layers, hidden_tiles, k_slice, n_slices,
-    # max_layer_steps, act, final_act, seg (host int[n_layers + 1])
+    # max_layer_steps, act, final_act, seg (host int[n_layers + 1]),
+    # pair_layers (a bit per layer), unit_off (host int[n_layers])
     "bsr_megakernel_prepare": [_P, ctypes.c_size_t] + [_I] * 4 + [_P] * 10
-                              + [_I] * 10 + [ctypes.POINTER(_I)],
+                              + [_I] * 10 + [ctypes.POINTER(_I),
+                                             ctypes.c_uint,
+                                             ctypes.POINTER(_I)],
     # block, x, out, scratch, B, stream, arrivals, occ0, slots, occ, epoch;
     # returns the grid size or minus the CUDA error
     "bsr_megakernel_prepared_launch": [_P] * 4 + [_I] + [_P] * 5

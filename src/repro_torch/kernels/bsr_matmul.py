@@ -55,8 +55,11 @@ calls are not counted), exactly under concurrency;
 or not, that took the row-tiled route (and, while tracing is active, each
 adds 1 to the ``mega.row_tiled`` counter of ``obs.trace``, and its patch
 items, patch runs x row tiles, to ``mega.patch_items``);
-``reset_launches()`` zeroes all four.  ``bsr_megakernel.grid`` is the
-cooperative grid size of the last launch.
+``reset_launches()`` zeroes all four.  While tracing is active a launch of a
+schedule with a gate/up pair layer adds 1 to ``mega.glu_launches`` and the
+pair steps it stages to ``mega.glu_pairs``: live pair steps x 64-row tiles
+on the row-tiled walk, every pair step x 32-row chunks on the split-K walk.
+``bsr_megakernel.grid`` is the cooperative grid size of the last launch.
 """
 
 from __future__ import annotations
@@ -183,7 +186,10 @@ class SplitPlan:
     ``g``; the last CTA of a run to finish sums the run's partials in
     schedule order, then K-slice order.  ``vec`` is the number of weight
     elements one thread loads at once (16 bytes' worth, or 1 where a block
-    row is not a multiple of 16 bytes).
+    row is not a multiple of 16 bytes).  A pair step (``wide[g]``, a
+    ``[bm, 2 * bn]`` gate/up block) writes partials twice as wide, so it
+    takes two partial numbers a slice: its slice ``s`` writes
+    ``part_off[g] + 2 s``.
     """
 
     step_run: np.ndarray   # int32 [n_steps]
@@ -191,15 +197,22 @@ class SplitPlan:
     k_slice: int
     n_slices: int
     vec: int
+    wide: Optional[np.ndarray] = None   # bool [n_steps]: the pair steps
 
     @property
     def n_parts(self) -> int:
-        return len(self.part_off) * self.n_slices
+        n = len(self.part_off)
+        if self.wide is not None:
+            n += int(np.count_nonzero(self.wide))
+        return n * self.n_slices
 
 
-def split_plan(run_ptr, bm: int, bn: int, itemsize: int) -> SplitPlan:
+def split_plan(run_ptr, bm: int, bn: int, itemsize: int,
+               wide=None) -> SplitPlan:
     """The split-K work decomposition of a schedule with run table
-    ``run_ptr`` and ``[bm, bn]`` blocks of ``itemsize``-byte weights."""
+    ``run_ptr`` and ``[bm, bn]`` blocks of ``itemsize``-byte weights;
+    ``wide`` (bool per step) marks pair steps, whose partials take two
+    numbers a slice (``bn`` is then the pair's width)."""
     run_ptr = np.asarray(run_ptr, dtype=np.int64)
     vec = 16 // itemsize if (bn * itemsize) % 16 == 0 else 1
     groups = bn // vec                      # column groups of a block row
@@ -212,9 +225,15 @@ def split_plan(run_ptr, bm: int, bn: int, itemsize: int) -> SplitPlan:
     n_slices = -(-bm // k_slice)
     n_steps = int(run_ptr[-1])
     step_run = np.repeat(np.arange(len(run_ptr) - 1), np.diff(run_ptr))
+    if wide is None:
+        part_off = np.arange(n_steps) * n_slices
+    else:
+        wide = np.asarray(wide, dtype=bool)
+        size = n_slices * (1 + wide.astype(np.int64))
+        part_off = np.concatenate([[0], np.cumsum(size)[:-1]])
     return SplitPlan(step_run=step_run.astype(np.int32),
-                     part_off=(np.arange(n_steps) * n_slices).astype(np.int32),
-                     k_slice=k_slice, n_slices=n_slices, vec=vec)
+                     part_off=part_off.astype(np.int32),
+                     k_slice=k_slice, n_slices=n_slices, vec=vec, wide=wide)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,13 +250,16 @@ class RowRuns:
     ``order[first[k]:first[k + 1]]``.  A work item is (run, row tile); item
     ``i`` of layer ``k`` is row tile ``i % nt`` of run
     ``order[first[k] + i // nt]``, and the CTAs take the items in rounds,
-    forward then backward (``csrc/row_tile.cuh``).
+    forward then backward (``csrc/row_tile.cuh``).  ``pair_steps`` counts
+    the live steps of the pair layers: an item of one stages that many
+    (gate, up) blocks.
     """
 
     order: np.ndarray          # int32 [n_runs]
     first: Tuple[int, ...]     # [n_layers + 1]
     fewest: int                # runs of the layer with the fewest
     live: np.ndarray           # int32 [n_runs]
+    pair_steps: int = 0
 
     @property
     def patch_runs(self) -> int:
@@ -250,10 +272,11 @@ class RowRuns:
                         ~self.order).astype(np.int32)
 
 
-def row_runs(run_ptr, segments, live) -> RowRuns:
+def row_runs(run_ptr, segments, live, pairs=()) -> RowRuns:
     """The row-tiled deal of a flat schedule with run table ``run_ptr``,
-    layer ``segments`` (every layer starts a run) and ``live`` (per step,
-    False on a patch block)."""
+    layer ``segments`` (every layer starts a run), ``live`` (per step,
+    False on a patch block) and ``pairs`` (per layer, True for a pair
+    layer)."""
     run_ptr = np.asarray(run_ptr, dtype=np.int64)
     starts = run_ptr[:-1]
     n_live = np.add.reduceat(np.asarray(live, dtype=np.int64), starts)
@@ -261,10 +284,13 @@ def row_runs(run_ptr, segments, live) -> RowRuns:
     first.append(len(starts))
     order = [np.arange(a, b)[np.argsort(-n_live[a:b], kind="stable")]
              for a, b in zip(first[:-1], first[1:])]
+    live = np.asarray(live, dtype=bool)
+    pair_steps = sum(int(live[s:e].sum())
+                     for (s, e), p in zip(segments, pairs) if p)
     return RowRuns(order=np.concatenate(order).astype(np.int32),
                    first=tuple(first),
                    fewest=min(b - a for a, b in zip(first[:-1], first[1:])),
-                   live=n_live.astype(np.int32))
+                   live=n_live.astype(np.int32), pair_steps=pair_steps)
 
 
 def row_tiled(B: int, flat) -> bool:
@@ -488,10 +514,18 @@ def bsr_megakernel_plain(x: torch.Tensor, flat,
     step, hidden tiles kept in two f32 ping-pong buffers.  With ``gate`` a
     step whose input tile has occupancy 0 skips its product, each hidden
     epilogue counts the live rows of the tile it wrote, and the result is
-    ``(y, occ)``."""
+    ``(y, occ)``.  A pair layer's step adds its product to a [B, 2 * bs]
+    accumulator (gate, then up), and its epilogue writes
+    ``act(gate + bg) * (up + bu)``."""
     B = x.shape[0]
     bs = flat.block
-    w = _dequant(flat.blocks, flat.scales)
+    pairs = flat.pairs
+    if any(pairs):
+        # a list of per-step blocks: a pair step's is [bs, 2 * bs]
+        w = [blk for k in range(flat.n_layers)
+             for blk in flat.layer_blocks(k).float()]
+    else:
+        w = _dequant(flat.blocks, flat.scales)
     xf = x.float()
     out = torch.empty((B, flat.grid_out_final * bs), dtype=x.dtype,
                       device=x.device)
@@ -509,7 +543,8 @@ def bsr_megakernel_plain(x: torch.Tensor, flat,
     acc = None
     for g, (lid, r) in enumerate(zip(lids, rows)):
         if first[g]:
-            acc = torch.zeros((B, bs), dtype=torch.float32, device=x.device)
+            acc = torch.zeros((B, 2 * bs if pairs[lid] else bs),
+                              dtype=torch.float32, device=x.device)
         if gate and occ_in[lid] is None:     # layer lid-1 is complete
             occ_in[lid] = occ[lid - 1].tolist()
         if not gate or occ_in[lid][r] > 0:
@@ -518,12 +553,17 @@ def bsr_megakernel_plain(x: torch.Tensor, flat,
             acc = acc + src @ w[g]
         if last[g]:
             c = cols[g]
-            y = acc + flat.bias_tiles[bias_idx[g]]
-            if lid == final:
-                out[:, c * bs:(c + 1) * bs] = \
-                    apply_activation(y, final_activation).to(x.dtype)
+            a = final_activation if lid == final else activation
+            if pairs[lid]:
+                y = acc + flat.bias_tiles[bias_idx[g]:bias_idx[g] + 2
+                                          ].reshape(-1)
+                h = apply_activation(y[:, :bs], a) * y[:, bs:]
             else:
-                h = apply_activation(y, activation)
+                y = acc + flat.bias_tiles[bias_idx[g]]
+                h = apply_activation(y, a)
+            if lid == final:
+                out[:, c * bs:(c + 1) * bs] = h.to(x.dtype)
+            else:
                 hidden[lid % 2, c] = h
                 if gate:                     # rows with any nonzero
                     occ[lid, c] = (h != 0).any(dim=1).sum()
@@ -562,10 +602,16 @@ def bsr_megakernel(x: torch.Tensor, flat,
     if n_in % bs:
         raise ValueError("n_in must be a multiple of the block size")
     grid_in0 = n_in // bs
-    if gate and (occ0 is None or tuple(occ0.shape) != (grid_in0,)):
-        raise ValueError(f"bsr_megakernel: gate=True needs occ0 of shape "
-                         f"[{grid_in0}]")
+    if gate:
+        if occ0 is None or tuple(occ0.shape) != (grid_in0,):
+            raise ValueError(f"bsr_megakernel: gate=True needs occ0 of "
+                             f"shape [{grid_in0}]")
+        if flat.has_pairs:
+            raise ValueError("bsr_megakernel: a schedule with a gate/up pair "
+                             "layer runs ungated")
     if x.is_cpu:
+        if flat.has_pairs:
+            check_pair_x(x.dtype)
         return bsr_megakernel_plain(x, flat, activation, final_activation,
                                     gate, occ0)
     act = activation_code(activation)
@@ -588,6 +634,13 @@ def bsr_megakernel(x: torch.Tensor, flat,
         if gate else None
     _launch_megakernel(x, flat, act, fact, occ0 if gate else None, occ, out)
     return (out, occ) if gate else out
+
+
+def check_pair_x(dtype: torch.dtype) -> None:
+    """A net with a gate/up pair layer takes float32 x only."""
+    if dtype != torch.float32:
+        raise ValueError("a net with a gate/up pair layer takes float32 x, "
+                         f"got {dtype}")
 
 
 def _check_flat(device: torch.device, flat) -> None:
@@ -672,10 +725,14 @@ def _launch_megakernel(x, flat, act: int, fact: int, occ0, occ, out) -> None:
         if packed.patch_runs:
             _trace.count("mega.patch_items",
                          packed.patch_runs * -(-B // _ROW_BM))
+    if packed.pair_steps:
+        _trace.count("mega.glu_launches")
+        _trace.count("mega.glu_pairs", packed.pair_steps * -(
+            -B // (_ROW_BM if rows else _ROWS_PER_CTA)))
 
 
 #: bytes the caller holds for one launch block (``mega::Block`` in
-#: csrc/mega.cuh, under 300)
+#: csrc/mega.cuh, under 450)
 _MEGA_BLOCK_BYTES = 512
 
 
@@ -683,8 +740,10 @@ _MEGA_BLOCK_BYTES = 512
 class _Packed:
     """One packed launch block of a flat schedule and what its calls need
     beside it: the device it was packed for, the block's address (its
-    memory held by ``block``), the launch entry, the run count and, on the
-    row-tiled walk, the patch runs, whose items it writes with no stage."""
+    memory held by ``block``), the launch entry, the run count, on the
+    row-tiled walk the patch runs, whose items it writes with no stage, and
+    the pair steps the walk stages per row tile (row-tiled: the live ones;
+    split-K: all, per 32-row chunk)."""
 
     device: torch.device
     address: int
@@ -692,6 +751,7 @@ class _Packed:
     launch: Callable
     runs: int
     patch_runs: int
+    pair_steps: int
 
 
 def _pack(flat, key, device: torch.device) -> _Packed:
@@ -703,6 +763,11 @@ def _pack(flat, key, device: torch.device) -> _Packed:
         if packed is not None and packed.device == device:
             return packed
         _check_flat(device, flat)
+        pair_layers, unit_off = 0, [0] * flat.n_layers
+        if flat.has_pairs:
+            check_pair_x(x_dtype)
+            pair_layers = sum(1 << k for k, p in enumerate(flat.pairs) if p)
+            unit_off = flat.unit_offsets()
         split, index, lib = flat.split, flat.split_index, _build.load()
         if rows:
             seg = flat.row_runs.first
@@ -721,14 +786,17 @@ def _pack(flat, key, device: torch.device) -> _Packed:
             flat.grid_out_final * flat.block, flat.block, flat.n_layers,
             flat.hidden_tiles, split.k_slice, split.n_slices,
             flat.max_layer_steps, act, fact,
-            (ctypes.c_int * len(seg))(*seg))
+            (ctypes.c_int * len(seg))(*seg), pair_layers,
+            (ctypes.c_int * len(unit_off))(*unit_off))
         if rc:
             raise RuntimeError(f"bsr_megakernel: packing its launch failed, "
                                f"CUDA error {rc}")
         packed = _Packed(device, ctypes.addressof(block), block,
                          lib.bsr_megakernel_prepared_launch,
                          flat.run_ptr.numel() - 1,
-                         flat.row_runs.patch_runs if rows else 0)
+                         flat.row_runs.patch_runs if rows else 0,
+                         flat.row_runs.pair_steps if rows
+                         else flat.pair_steps)
         flat.launch_blocks[key] = packed
     _trace.count("mega.pack")
     return packed

@@ -102,6 +102,14 @@
 //    over chunks of this launch's slots, and 0 for tiles no layer writes
 //    (their slots carry another epoch).
 //
+// Gate/up pair layers (Pair = true, f32 x and weights, ungated): a pair
+// step is one [bs, 2 bs] block (the gate's and the up's side by side), so
+// its work items are those of a block twice as wide, whose partials [B,
+// 2 bs] take two partial numbers a slice; the run's reducer
+// (reduce_pair_run) sums gate and up as reduce_run sums one block and
+// writes act(gate + bg) * (up + bu).  The flat schedule's K-slice is set
+// for the wider block, so the net's plain layers walk it too.
+//
 // The C entries of both walks live here: bsr_megakernel_prepare checks and
 // packs what a flat schedule's launches share into a launch block
 // (mega::Block, mega.cuh), once per schedule, walk, x dtype and width, and
@@ -120,6 +128,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 #include <utility>
 
 #include "split_k.cuh"
@@ -153,6 +162,19 @@ struct MegaParams {
   int seg[kMaxLayers + 1];  // first flat step of every layer, then n_steps
 };
 
+// A net with gate/up pair layers (mega::Block's pair fields).  A pair
+// step's block is [bs, 2 bs], the gate's columns and then the up's; its
+// partials are [B, 2 bs] and take two partial numbers each (part_off
+// counts [B, bs] partials); its run's reducer writes act(gate + bg) * (up
+// + bu), bias_idx naming the gate's bias row, the up's after it.
+struct MegaPairParams : MegaParams {
+  unsigned pair_layers;
+  int unit_off[kMaxLayers];  // step g of layer k at unit unit_off[k] + g
+                             // (+ 2 g in a pair layer)
+};
+template <bool Pair>
+using MegaParamsOf = std::conditional_t<Pair, MegaPairParams, MegaParams>;
+
 // Dynamic shared memory of one CTA, in 4-byte words: one work item's
 // staging and reduction and, gated, one word per input tile of layer 0
 // (its liveness).
@@ -162,9 +184,13 @@ __host__ __device__ constexpr size_t mega_smem_words(int k_slice, int bs,
   return item_smem_floats<VE>(k_slice, bs) + (Gate ? (size_t)in_tiles0 : 0);
 }
 
-template <bool Gate, typename XT, typename WT, int VE>
+// Pair: the net has pair layers (f32 x and weights, ungated only).
+template <bool Gate, typename XT, typename WT, int VE, bool Pair = false>
 __global__ void __launch_bounds__(kThreads)
-    bsr_megakernel_kernel(const __grid_constant__ MegaParams p) {
+    bsr_megakernel_kernel(const __grid_constant__ MegaParamsOf<Pair> p) {
+  static_assert(!Pair || (!Gate && std::is_same<XT, float>::value &&
+                          std::is_same<WT, float>::value),
+                "pair layers run ungated, on f32 x and weights");
   extern __shared__ float smem[];
   __shared__ int is_last;
   __shared__ unsigned warp_rows[kThreads / 32];
@@ -173,6 +199,8 @@ __global__ void __launch_bounds__(kThreads)
   const WT* blocks = static_cast<const WT*>(p.blocks);
   XT* out = static_cast<XT*>(p.out);
   const Lanes<VE> lanes(p.bs);
+  // Pair: the lanes of a pair step's [bs, 2 bs] block
+  const Lanes<VE> pair_lanes(Pair ? 2 * p.bs : p.bs);
   const int bs = p.bs;
   const int B = p.B;
   const int chunks = (B + kChunkRows - 1) / kChunkRows;
@@ -210,10 +238,30 @@ __global__ void __launch_bounds__(kThreads)
     m.sc = p.scales != nullptr ? p.scales[m.g] : 1.f;
     return m;
   };
-  auto load_weights = [&](WRegs<WT, VE>& w, const Work& m) {
+  // Pair: layer k is a pair layer
+  auto pair_layer = [&](int k) -> bool {
+    if constexpr (Pair) {
+      return ((p.pair_layers >> k) & 1u) != 0;
+    } else {
+      return false;
+    }
+  };
+  // the weights of work item m of layer k
+  auto load_weights = [&](WRegs<WT, VE>& w, const Work& m, int k) {
     const int k0 = m.s * p.k_slice;
-    load_slice<WT, VE>(w, blocks + ((size_t)m.g * bs + k0) * bs,
-                       min(p.k_slice, bs - k0), bs, lanes);
+    if constexpr (Pair) {
+      const WT* b0 = blocks + (size_t)p.unit_off[k] * bs * bs;
+      if (pair_layer(k)) {
+        load_slice<WT, VE>(w, b0 + ((size_t)m.g * bs + k0) * (2 * bs),
+                           min(p.k_slice, bs - k0), 2 * bs, pair_lanes);
+      } else {
+        load_slice<WT, VE>(w, b0 + ((size_t)m.g * bs + k0) * bs,
+                           min(p.k_slice, bs - k0), bs, lanes);
+      }
+    } else {
+      load_slice<WT, VE>(w, blocks + ((size_t)m.g * bs + k0) * bs,
+                         min(p.k_slice, bs - k0), bs, lanes);
+    }
   };
   // Gate: the slots of hidden tile c of layer k
   auto slots_of = [&](int k, int c) {
@@ -239,7 +287,7 @@ __global__ void __launch_bounds__(kThreads)
   if ((int)blockIdx.x < items_of(0)) {
     first = begin(0, blockIdx.x);
     if (!Gate) {
-      load_weights(w, first);
+      load_weights(w, first, 0);
       held = true;
     }
   }
@@ -268,7 +316,7 @@ __global__ void __launch_bounds__(kThreads)
       bool alive = true;
       if constexpr (Gate)
         alive = k > 0 && is_first ? first_live : tile_live(k, m.r);
-      if (alive && !held) load_weights(w, m);
+      if (alive && !held) load_weights(w, m, k);
       held = false;
       if (alive) {
         if (k == 0) {
@@ -282,10 +330,27 @@ __global__ void __launch_bounds__(kThreads)
       }
       const int g0 = p.run_ptr[m.run];
       const int g1 = p.run_ptr[m.run + 1];
+      [[maybe_unused]] const bool pair = pair_layer(k);
       float* part = p.partial + ((size_t)(p.part_off[m.g] + m.s) * B + b0) * bs;
+      if constexpr (Pair) {
+        // a pair step's slice s: two partial numbers from part_off + 2 s
+        if (pair)
+          part = p.partial + (size_t)p.part_off[m.g] * B * bs +
+                 ((size_t)m.s * B + b0) * (2 * bs);
+      }
       if (alive) {
         __syncthreads();
-        slice_product<WT, VE>(w, m.sc, xs, red, part, nrows, kn, bs, lanes);
+        if constexpr (Pair) {
+          if (pair) {
+            slice_product<WT, VE>(w, m.sc, xs, red, part, nrows, kn, 2 * bs,
+                                  pair_lanes);
+          } else {
+            slice_product<WT, VE>(w, m.sc, xs, red, part, nrows, kn, bs,
+                                  lanes);
+          }
+        } else {
+          slice_product<WT, VE>(w, m.sc, xs, red, part, nrows, kn, bs, lanes);
+        }
       } else {
         // a dead step's partial is +0, which its ungated product would be
         for (int o = threadIdx.x; o < nrows * bs; o += kThreads)
@@ -298,6 +363,28 @@ __global__ void __launch_bounds__(kThreads)
       // the last item of the (run, chunk): reduce it
       const float* part0 = p.partial + ((size_t)p0 * B + b0) * bs;
       const float* bias = p.bias_tiles + (size_t)m.bias_row * bs;
+      if constexpr (Pair) {
+        if (pair) {
+          // the run's [nrows, 2 bs] partials, the gate's and the up's
+          const float* pair0 =
+              p.partial + (size_t)p0 * B * bs + (size_t)b0 * (2 * bs);
+          if (is_final) {
+            reduce_pair_run(pair0, g1 - g0, p.n_slices, 2 * part_stride,
+                            nrows, bs, bias, act,
+                            OutTile<XT>{out + (size_t)b0 * p.n_out +
+                                            (size_t)m.c * bs,
+                                        p.n_out});
+          } else {
+            float* h = h_out + ((size_t)m.c * B + b0) * bs;
+            reduce_pair_run(pair0, g1 - g0, p.n_slices, 2 * part_stride,
+                            nrows, bs, bias, act,
+                            [&](int i, int n, float y) {
+                              __stcg(h + (size_t)i * bs + n, y);
+                            });
+          }
+          continue;
+        }
+      }
       if (is_final) {
         reduce_run(part0, g1 - g0, p.n_slices, part_stride, nrows, bs, bias,
                    act,
@@ -348,7 +435,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       if (load) {
-        load_weights(w, first);
+        load_weights(w, first, k + 1);
         held = true;
       }
       first_live = load;
@@ -358,19 +445,25 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // one work item per CTA in the layer with the most
-template <bool Gate, typename XT, typename WT, int VE>
-cudaError_t launch_megakernel(const MegaParams& p, int max_layer_steps,
-                              cudaStream_t stream, int* grid) {
+template <bool Gate, typename XT, typename WT, int VE, bool Pair = false>
+cudaError_t launch_megakernel(const MegaParamsOf<Pair>& p,
+                              int max_layer_steps, cudaStream_t stream,
+                              int* grid) {
   const int chunks = (p.B + kChunkRows - 1) / kChunkRows;
-  return launch_cooperative<bsr_megakernel_kernel<Gate, XT, WT, VE>,
+  size_t words = mega_smem_words<Gate, VE>(p.k_slice, p.bs, p.n_in / p.bs);
+  if constexpr (Pair) {  // a pair step's staging and reduction, 2 bs wide
+    const size_t pair_words =
+        mega_smem_words<Gate, VE>(p.k_slice, 2 * p.bs, p.n_in / p.bs);
+    if (pair_words > words) words = pair_words;
+  }
+  return launch_cooperative<bsr_megakernel_kernel<Gate, XT, WT, VE, Pair>,
                             kThreads>(
-      p, max_layer_steps * p.n_slices * chunks,
-      4 * mega_smem_words<Gate, VE>(p.k_slice, p.bs, p.n_in / p.bs), stream,
-      grid);
+      p, max_layer_steps * p.n_slices * chunks, 4 * words, stream, grid);
 }
 
 // The split-K walk's launcher: MegaParams from the block and the call, then
-// the instance for the dtypes and the load width.
+// the instance for the dtypes and the load width; a block with pair layers
+// (f32 only, 16-byte loads, ungated) takes the Pair instance.
 template <bool Gate>
 cudaError_t split_k_walk(const mega::Block& b, const mega::Call& c,
                          int* grid) {
@@ -384,6 +477,14 @@ cudaError_t split_k_walk(const mega::Block& b, const mega::Call& c,
                b.bs,         b.n_layers, b.hidden_tiles, b.k_slice,
                b.n_slices,   b.act,      b.final_act,  c.epoch};
   for (int k = 0; k <= b.n_layers; ++k) p.seg[k] = b.seg[k];
+  if constexpr (!Gate) {
+    if (b.pair_layers != 0) {
+      MegaPairParams q{p, b.pair_layers, {}};
+      for (int k = 0; k < b.n_layers; ++k) q.unit_off[k] = b.unit_off[k];
+      return launch_megakernel<false, float, float, kVec<float>, true>(
+          q, b.max_layer_steps, c.stream, grid);
+    }
+  }
   return with_dtypes(b.x_dtype, b.w_dtype, [&](auto xt, auto wt) {
     using XT = typename decltype(xt)::type;
     using WT = typename decltype(wt)::type;
@@ -407,8 +508,14 @@ cudaError_t split_k_walk(const mega::Block& b, const mega::Call& c,
 // part_off, k_slice, n_slices, max_layer_steps and vec (weight elements
 // per load, 16 bytes' worth or 1); the row-tiled walk reads run_order and
 // takes bs 64 or 128 and, for float32 weights, null scales.  A walk ignores
-// the other walk's arguments (null or 0 there).  Returns 0 or
-// cudaErrorInvalidValue.
+// the other walk's arguments (null or 0 there).  pair_layers: a bit per
+// gate/up pair layer (0 for none), whose steps hold [bs, 2 bs] blocks
+// (split-K: the partials and k_slice of such a step are the split plan's
+// for 2 bs wide blocks); with any, x and weights are float32, scales null,
+// vec 4, bs 64 or 128, and unit_off (n_layers host ints, copied) says
+// where each layer's weights start: step g of layer k at unit unit_off[k]
+// + g, or + 2 g in a pair layer, a unit being bs * bs weights.  Returns 0
+// or cudaErrorInvalidValue.
 extern "C" int bsr_megakernel_prepare(
     void* block, size_t capacity, int row_tiled, int x_dtype, int w_dtype,
     int vec, const void* blocks, const int* rows, const int* cols,
@@ -416,7 +523,8 @@ extern "C" int bsr_megakernel_prepare(
     const int* run_order, const int* bias_idx, const float* bias_tiles,
     const float* scales, int n_in, int n_out, int bs, int n_layers,
     int hidden_tiles, int k_slice, int n_slices, int max_layer_steps,
-    int act, int final_act, const int* seg) {
+    int act, int final_act, const int* seg, unsigned pair_layers,
+    const int* unit_off) {
   if (block == nullptr || capacity < sizeof(mega::Block) || seg == nullptr ||
       n_layers < 1 || n_layers > kMaxLayers)
     return (int)cudaErrorInvalidValue;
@@ -425,12 +533,21 @@ extern "C" int bsr_megakernel_prepare(
                                      (w_dtype != 0 || scales == nullptr)
                                : vec_ok(vec, w_dtype);
   if (!takes) return (int)cudaErrorInvalidValue;
+  const bool pairs_ok =
+      pair_layers == 0 ||
+      (unit_off != nullptr && x_dtype == 0 && w_dtype == 0 &&
+       scales == nullptr && vec == kVec<float> && (bs == 64 || bs == 128) &&
+       (n_layers == kMaxLayers || (pair_layers >> n_layers) == 0));
+  if (!pairs_ok) return (int)cudaErrorInvalidValue;
   mega::Block b{row_tiled != 0, x_dtype,   w_dtype,   vec,        blocks,
                 rows,           cols,      run_ptr,   step_run,   part_off,
                 run_order,      bias_idx,  bias_tiles, scales,    n_in,
                 n_out,          bs,        n_layers,  hidden_tiles, k_slice,
-                n_slices,       max_layer_steps, act, final_act,  {}};
+                n_slices,       max_layer_steps, act, final_act,  {},
+                pair_layers,    {}};
   for (int k = 0; k <= n_layers; ++k) b.seg[k] = seg[k];
+  if (pair_layers != 0)
+    for (int k = 0; k < n_layers; ++k) b.unit_off[k] = unit_off[k];
   *static_cast<mega::Block*>(block) = b;
   return 0;
 }
@@ -454,7 +571,9 @@ extern "C" int bsr_megakernel_prepared_launch(
     unsigned epoch) {
   const mega::Block& b = *static_cast<const mega::Block*>(block);
   const bool gate = occ != nullptr;
-  if (B < 1 || (gate && (occ0 == nullptr || slots == nullptr || epoch == 0)) ||
+  if (B < 1 ||
+      (gate && (occ0 == nullptr || slots == nullptr || epoch == 0 ||
+                b.pair_layers != 0)) ||
       (b.row_tiled && reinterpret_cast<uintptr_t>(x) % 16 != 0))
     return -(int)cudaErrorInvalidValue;
   const mega::Call c{x,        out,  scratch,

@@ -163,6 +163,12 @@ struct Block {
   // row-tiled: each layer's first entry of run_order, then the run count
   // (run_seg)
   int seg[kMaxLayers + 1];
+  // the gate/up pair layers, a bit per layer (0: none), and where each
+  // layer's weights start: step g of layer k at unit unit_off[k] + g, or
+  // unit_off[k] + 2 g in a pair layer, whose steps hold [bs, 2 bs] (a unit
+  // is bs * bs weights)
+  unsigned pair_layers;
+  int unit_off[kMaxLayers];
 };
 
 // One launch's own values (see bsr_megakernel_prepared_launch).

@@ -95,6 +95,20 @@
 // writes occ after the last barrier.  A gated CTA issues nothing across
 // the barrier: whether its first weights are read depends on the layer.
 //
+// Gate/up pair layers (Pair = true; a SwiGLU FFN's gate and up
+// projections, f32 x and weights, ungated): a pair step's block holds the
+// gate's and the up's [bs, bs] blocks side by side, [bs, 2 bs].  Its item
+// keeps two sets of accumulators, the gate's and the up's (64 registers a
+// thread at bs = 128), and stages one x tile and both weight tiles;
+// row_pair_epilogue writes act(gate + bg) * (up + bu) once, at the
+// layer's output width, so no [B, 2 n] product ever reaches memory.  A
+// pair stage is kPairBK = 32 K-rows deep: then it holds as many weights
+// (41,984 B at bs 128, against 50,176 B for a plain 64-deep stage) and a
+// thread does as many FMAs per barrier as in a plain stage, and two CTAs
+// still fit an SM (a 64-deep pair stage, 82,944 B, would cost the second
+// CTA).  The ring is sized for the larger, plain stage, so one launch
+// walks pair and plain layers alike.
+//
 // Every launch goes on the caller's stream, allocates nothing and returns
 // cudaGetLastError() (or the launch API's own error).  Launches of one flat
 // schedule must be ordered on one stream: they share the occupancy slots.
@@ -118,20 +132,32 @@ constexpr int kRowBM = 64;         // batch rows of an item
 constexpr int kRowTM = kRowBM / 16;  // of them, a thread's
 constexpr int kRowBK = 64;         // K-rows of a block per stage
 constexpr int kRowStages = 2;      // the cp.async buffers
+// K-rows of a pair layer's stage, whose weight tile holds the gate's and
+// the up's rows side by side: 32 deep, a stage holds as many weights and a
+// thread's stage as many FMAs as a 64-deep one of a plain layer
+constexpr int kPairBK = 32;
 
-// a staged x row in elements: kRowBK and 16 bytes of padding, so that the
+// a staged x row in elements: BK and 16 bytes of padding, so that the
 // rows a warp reads at once fall in different banks
-template <typename T>
+template <typename T, int BK = kRowBK>
 __host__ __device__ constexpr int row_xs() {
-  return kRowBK + 16 / (int)sizeof(T);
+  return BK + 16 / (int)sizeof(T);
 }
 // the x part of a stage, sized for f32 (the hidden layers' input)
-constexpr int kRowXBytes = kRowBM * row_xs<float>() * 4;
+template <int BK>
+__host__ __device__ constexpr int row_x_bytes() {
+  return kRowBM * row_xs<float, BK>() * 4;
+}
+constexpr int kRowXBytes = row_x_bytes<kRowBK>();
 
-// one stage: x tile, then weight tile
-template <typename WT, int BS>
+// one stage: x tile, then weight tile (PairL: of a pair layer)
+template <typename WT, int BS, bool PairL = false>
 __host__ __device__ constexpr int row_stage_bytes() {
-  return kRowXBytes + kRowBK * BS * (int)sizeof(WT);
+  if constexpr (PairL) {
+    return row_x_bytes<kPairBK>() + kPairBK * 2 * BS * (int)sizeof(WT);
+  } else {
+    return kRowXBytes + kRowBK * BS * (int)sizeof(WT);
+  }
 }
 
 __device__ __forceinline__ void rt_cp_async16(void* dst, const void* src,
@@ -149,29 +175,29 @@ __device__ __forceinline__ void rt_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// the weight tile of a stage: kRowBK contiguous block rows
-template <typename WT, int BS>
+// the weight tile of a stage: BK contiguous block rows of W weights
+template <typename WT, int BS, int BK = kRowBK, int W = BS>
 __device__ __forceinline__ void rt_issue_w(unsigned char* dst,
                                            const WT* src) {
-  constexpr int kPieces = kRowBK * BS * (int)sizeof(WT) / 16;
+  constexpr int kPieces = BK * W * (int)sizeof(WT) / 16;
   const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
   for (int c = threadIdx.x; c < kPieces; c += kRowThreads)
     rt_cp_async16(dst + 16 * c, s + 16 * c, true);
 }
 
 // the x tile of a stage: rows 0 .. kRowBM-1 of src (rows `stride` elements
-// apart), kRowBK elements each; rows from nrows on are zero-filled
-template <typename T>
+// apart), BK elements each; rows from nrows on are zero-filled
+template <typename T, int BK = kRowBK>
 __device__ __forceinline__ void rt_issue_x(unsigned char* dst, const T* src,
                                            size_t stride, int nrows) {
-  constexpr int kPer = kRowBK * (int)sizeof(T) / 16;  // pieces of a row
+  constexpr int kPer = BK * (int)sizeof(T) / 16;  // pieces of a row
   constexpr int kE = 16 / (int)sizeof(T);             // elements of a piece
   T* d = reinterpret_cast<T*>(dst);
   for (int c = threadIdx.x; c < kRowBM * kPer; c += kRowThreads) {
     const int i = c / kPer;
     const int q = c - i * kPer;
     const bool ok = i < nrows;
-    rt_cp_async16(d + i * row_xs<T>() + q * kE,
+    rt_cp_async16(d + i * row_xs<T, BK>() + q * kE,
                   ok ? src + (size_t)i * stride + q * kE : src, ok);
   }
 }
@@ -235,6 +261,49 @@ __device__ __forceinline__ void rt_fma_stage(float (&acc)[kRowTM][TN],
   }
 }
 
+// one pair stage's products into the thread's gate and up accumulators:
+// xs as in rt_fma_stage (kPairBK deep), ws the staged weight tile, its rows
+// (2 * bs apart) the gate's bs weights and then the up's
+template <typename IT, int TN>
+__device__ __forceinline__ void rt_fma_pair_stage(float (&gate)[kRowTM][TN],
+                                                  float (&up)[kRowTM][TN],
+                                                  const IT* xs,
+                                                  const float* ws, int ty,
+                                                  int tx) {
+  constexpr int XS = row_xs<IT, kPairBK>();
+  constexpr int BS = 16 * TN;
+#pragma unroll 2
+  for (int kq = 0; kq < kPairBK; kq += 4) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // the rows' x values one K-row at a time: 4 registers, where a
+      // vector load of 4 K-rows would hold 16 beside the 64 accumulators
+      float xk[kRowTM];
+#pragma unroll
+      for (int i = 0; i < kRowTM; ++i)
+        xk[i] = xs[(ty + 16 * i) * XS + kq + kk];
+      const float* wr = ws + (kq + kk) * 2 * BS + 4 * tx;
+      float wv[TN];
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) rt_load4(wv + 4 * q, wr + 64 * q, 1.f);
+#pragma unroll
+      for (int i = 0; i < kRowTM; ++i) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          gate[i][j] = fmaf(xk[i], wv[j], gate[i][j]);
+      }
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q)
+        rt_load4(wv + 4 * q, wr + BS + 64 * q, 1.f);
+#pragma unroll
+      for (int i = 0; i < kRowTM; ++i) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) up[i][j] = fmaf(xk[i], wv[j], up[i][j]);
+      }
+    }
+  }
+}
+
 // 4 neighbouring outputs in the output's dtype
 __device__ __forceinline__ void rt_store4(float* p, float a, float b,
                                           float c, float d) {
@@ -272,6 +341,16 @@ struct RowParams {
   int run_seg[kMaxLayers + 1];  // each layer's first entry of run_order
 };
 
+// A net with gate/up pair layers (mega::Block's pair fields): which
+// layers, and where each layer's weights start (step g of layer k at unit
+// unit_off[k] + g, or + 2 g in a pair layer; a unit is bs * bs weights).
+struct RowPairParams : RowParams {
+  unsigned pair_layers;
+  int unit_off[kMaxLayers];
+};
+template <bool Pair>
+using RowParamsOf = std::conditional_t<Pair, RowPairParams, RowParams>;
+
 // Where a CTA's walk of one layer stands: its n-th item (run, row tile
 // from b0) and, in it, step g's K-rows k0 .. k0 + kRowBK - 1.  g < 0 marks
 // the one empty stage of an item with no live step (a patch run's, or one
@@ -284,8 +363,8 @@ struct RowCursor {
 // A layer's items and how a CTA visits them: item i is row tile i % nt of
 // run run_order[run0 + i / nt]; CTA j of G takes items j, 2G - 1 - j,
 // 2G + j, ...  live (gated): whether each input tile of the layer holds a
-// nonzero.
-template <bool Gate, int BS>
+// nonzero.  BK: the K-rows of a stage.
+template <bool Gate, int BS, int BK = kRowBK>
 struct RowWalk {
   const int* rows;
   const int* run_ptr;
@@ -337,11 +416,11 @@ struct RowWalk {
   // c's stage is its item's last
   __device__ bool last(const RowCursor& c) const {
     return c.g < 0 ||
-           (c.k0 + kRowBK >= BS && next_live(c.g + 1, c.g1) == c.g1);
+           (c.k0 + BK >= BS && next_live(c.g + 1, c.g1) == c.g1);
   }
   __device__ void advance(RowCursor& c) const {
     if (c.g >= 0) {
-      c.k0 += kRowBK;
+      c.k0 += BK;
       if (c.k0 < BS) return;
       c.k0 = 0;
       c.g = next_live(c.g + 1, c.g1);
@@ -442,16 +521,70 @@ __device__ __forceinline__ void row_epilogue(const RowParams& p, int k,
   }
 }
 
+// The end of a pair layer's item: act(gate + bg) * (up + bu) on the
+// thread's outputs (the tile's bias rows: the gate's, then the up's),
+// written as the hidden tile (f32, through L2) or the output.  Ungated.
+template <typename XT, int TN>
+__device__ __forceinline__ void row_pair_epilogue(
+    const RowParams& p, int k, const RowCursor& c,
+    const float (&gate)[kRowTM][TN], const float (&up)[kRowTM][TN]) {
+  constexpr int BS = 16 * TN;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const int B = p.B;
+  const bool is_final = k == p.n_layers - 1;
+  const int act = is_final ? p.final_act : p.act;
+  const int g0 = __ldg(p.run_ptr + c.run);
+  const int ct = __ldg(p.cols + g0);
+  const float* bias = p.bias_tiles + (size_t)__ldg(p.bias_idx + g0) * BS;
+  float* h_out = p.hidden + (size_t)(k % 2) * p.hidden_tiles * B * BS;
+  const int nrows = min(kRowBM, B - c.b0);
+#pragma unroll
+  for (int i = 0; i < kRowTM; ++i) {
+    const int row = ty + 16 * i;
+    if (row >= nrows) continue;
+#pragma unroll
+    for (int q = 0; q < TN / 4; ++q) {
+      const int col = 4 * (tx + 16 * q);
+      const float4 bg = __ldg(reinterpret_cast<const float4*>(bias + col));
+      const float4 bu =
+          __ldg(reinterpret_cast<const float4*>(bias + BS + col));
+      const float v0 =
+          activate(gate[i][4 * q] + bg.x, act) * (up[i][4 * q] + bu.x);
+      const float v1 =
+          activate(gate[i][4 * q + 1] + bg.y, act) * (up[i][4 * q + 1] + bu.y);
+      const float v2 =
+          activate(gate[i][4 * q + 2] + bg.z, act) * (up[i][4 * q + 2] + bu.z);
+      const float v3 =
+          activate(gate[i][4 * q + 3] + bg.w, act) * (up[i][4 * q + 3] + bu.w);
+      if (is_final) {
+        rt_store4(static_cast<XT*>(p.out) + (size_t)(c.b0 + row) * p.n_out +
+                      (size_t)ct * BS + col,
+                  v0, v1, v2, v3);
+      } else {
+        __stcg(reinterpret_cast<float4*>(
+                   h_out + ((size_t)ct * B + c.b0 + row) * BS + col),
+               make_float4(v0, v1, v2, v3));
+      }
+    }
+  }
+}
+
 // Layer k of the walk; IT is the type of its input (x's in layer 0, f32
 // after).  w_issued: the weights of the CTA's first stage are in flight
-// already (issued across the barrier).
-template <bool Gate, typename XT, typename WT, int BS, typename IT>
+// already (issued across the barrier).  PairNet: the net has pair layers,
+// so the layer's weights start at unit unit_off; PairL: this layer is one
+// (kPairBK-deep stages, gate and up accumulators, row_pair_epilogue).
+template <bool Gate, typename XT, typename WT, int BS, typename IT,
+          bool PairL = false, bool PairNet = false>
 __device__ __forceinline__ void row_layer(const RowParams& p, int k,
                                           unsigned char* ring,
                                           const int* live, NzWords& nz_words,
-                                          bool w_issued) {
+                                          bool w_issued, int unit_off = 0) {
   constexpr int TN = BS / 16;
-  constexpr int SB = row_stage_bytes<WT, BS>();
+  constexpr int SB = row_stage_bytes<WT, BS, PairL>();
+  constexpr int BK = PairL ? kPairBK : kRowBK;
+  constexpr int XB = row_x_bytes<BK>();
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
   const int B = p.B;
@@ -470,17 +603,25 @@ __device__ __forceinline__ void row_layer(const RowParams& p, int k,
     row_stride = BS;
   }
   const WT* blocks = static_cast<const WT*>(p.blocks);
-  const RowWalk<Gate, BS> W(p, k, live);
+  if constexpr (PairNet) blocks += (size_t)unit_off * BS * BS;
+  const RowWalk<Gate, BS, BK> W(p, k, live);
   auto issue = [&](const RowCursor& c, int s, bool weights) {
     if (c.g < 0) return;
     unsigned char* st = ring + s * SB;
-    if (weights)
-      rt_issue_w<WT, BS>(st + kRowXBytes,
-                         blocks + ((size_t)c.g * BS + c.k0) * BS);
-    rt_issue_x<IT>(st,
-                   src + (size_t)__ldg(p.rows + c.g) * tile_stride +
-                       (size_t)c.b0 * row_stride + c.k0,
-                   row_stride, min(kRowBM, B - c.b0));
+    if constexpr (PairL) {
+      // a pair step's block is [BS, 2 BS]: its K-rows k0 .. k0 + BK - 1
+      if (weights)
+        rt_issue_w<WT, BS, BK, 2 * BS>(
+            st + XB, blocks + ((size_t)c.g * BS + c.k0) * (2 * BS));
+    } else {
+      if (weights)
+        rt_issue_w<WT, BS>(st + kRowXBytes,
+                           blocks + ((size_t)c.g * BS + c.k0) * BS);
+    }
+    rt_issue_x<IT, BK>(st,
+                       src + (size_t)__ldg(p.rows + c.g) * tile_stride +
+                           (size_t)c.b0 * row_stride + c.k0,
+                       row_stride, min(kRowBM, B - c.b0));
   };
   RowCursor ic, cc;  // the stage to issue next, the stage to compute next
   W.enter(ic, 0);
@@ -493,6 +634,8 @@ __device__ __forceinline__ void row_layer(const RowParams& p, int k,
     rt_commit();
   }
   float acc[kRowTM][TN] = {};
+  // PairL: the up's accumulators (acc holds the gate's)
+  float acc_up[PairL ? kRowTM : 1][PairL ? TN : 1] = {};
   for (int s = 0; !cc.done; s = s == kRowStages - 1 ? 0 : s + 1) {
     rt_wait<kRowStages - 2>();
     __syncthreads();  // stage s landed; every thread is done with s - 1
@@ -503,13 +646,30 @@ __device__ __forceinline__ void row_layer(const RowParams& p, int k,
     rt_commit();
     if (cc.g >= 0) {
       const unsigned char* st = ring + s * SB;
-      const float sc = p.scales != nullptr ? __ldg(p.scales + cc.g) : 1.f;
-      rt_fma_stage<IT, WT, TN>(acc, reinterpret_cast<const IT*>(st),
-                               reinterpret_cast<const WT*>(st + kRowXBytes),
-                               sc, ty, tx);
+      if constexpr (PairL) {
+        // f32 weights only: no scale
+        rt_fma_pair_stage<IT, TN>(acc, acc_up,
+                                  reinterpret_cast<const IT*>(st),
+                                  reinterpret_cast<const float*>(st + XB),
+                                  ty, tx);
+      } else {
+        const float sc = p.scales != nullptr ? __ldg(p.scales + cc.g) : 1.f;
+        rt_fma_stage<IT, WT, TN>(acc, reinterpret_cast<const IT*>(st),
+                                 reinterpret_cast<const WT*>(st + kRowXBytes),
+                                 sc, ty, tx);
+      }
     }
     if (W.last(cc)) {
-      row_epilogue<Gate, XT>(p, k, cc, acc, nz_words);
+      if constexpr (PairL) {
+        row_pair_epilogue<XT>(p, k, cc, acc, acc_up);
+#pragma unroll
+        for (int i = 0; i < kRowTM; ++i) {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc_up[i][j] = 0.f;
+        }
+      } else {
+        row_epilogue<Gate, XT>(p, k, cc, acc, nz_words);
+      }
 #pragma unroll
       for (int i = 0; i < kRowTM; ++i) {
 #pragma unroll
@@ -522,11 +682,16 @@ __device__ __forceinline__ void row_layer(const RowParams& p, int k,
 }
 
 // The row-tiled route: layer by layer in one cooperative launch, as the
-// split-K walk, a grid-wide barrier between the layers.
-template <bool Gate, typename XT, typename WT, int BS>
+// split-K walk, a grid-wide barrier between the layers.  Pair: the net
+// has gate/up pair layers (f32 x and weights, ungated only).
+template <bool Gate, typename XT, typename WT, int BS, bool Pair = false>
 __global__ void __launch_bounds__(kRowThreads, 2)
-    bsr_megakernel_row_tiled_kernel(const __grid_constant__ RowParams p) {
+    bsr_megakernel_row_tiled_kernel(const __grid_constant__ RowParamsOf<Pair>
+                                        p) {
   static_assert(BS % kRowBK == 0 && BS % 64 == 0, "64 or 128 wide blocks");
+  static_assert(!Pair || (!Gate && std::is_same<XT, float>::value &&
+                          std::is_same<WT, float>::value),
+                "pair layers run ungated, on f32 x and weights");
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ NzWords nz_words;  // Gate
   cg::grid_group grid = cg::this_grid();
@@ -541,7 +706,15 @@ __global__ void __launch_bounds__(kRowThreads, 2)
       if (is_final && blockIdx.x == gridDim.x - 1)
         sum_occupancy<kRowThreads>(p, (p.B + kChunkRows - 1) / kChunkRows);
     }
-    if constexpr (std::is_same<XT, float>::value) {
+    if constexpr (Pair) {
+      if ((p.pair_layers >> k) & 1u) {
+        row_layer<Gate, XT, WT, BS, float, true, true>(
+            p, k, ring, live, nz_words, w_issued, p.unit_off[k]);
+      } else {
+        row_layer<Gate, XT, WT, BS, float, false, true>(
+            p, k, ring, live, nz_words, w_issued, p.unit_off[k]);
+      }
+    } else if constexpr (std::is_same<XT, float>::value) {
       row_layer<Gate, XT, WT, BS, float>(p, k, ring, live, nz_words,
                                          w_issued);
     } else if (k == 0) {
@@ -557,7 +730,22 @@ __global__ void __launch_bounds__(kRowThreads, 2)
     // patch run's, which has no stage
     __syncthreads();  // every thread is done with the buffers
     cg::grid_group::arrival_token token = grid.barrier_arrive();
-    if constexpr (!Gate) {
+    if constexpr (Pair) {
+      const RowWalk<false, BS> W(p, k + 1, nullptr);
+      RowCursor c;
+      W.enter(c, 0);
+      w_issued = !c.done && c.g >= 0;
+      if (w_issued) {
+        const WT* w = static_cast<const WT*>(p.blocks) +
+                      (size_t)p.unit_off[k + 1] * BS * BS;
+        if ((p.pair_layers >> (k + 1)) & 1u) {
+          rt_issue_w<WT, BS, kPairBK, 2 * BS>(
+              ring + row_x_bytes<kPairBK>(), w + (size_t)c.g * 2 * BS * BS);
+        } else {
+          rt_issue_w<WT, BS>(ring + kRowXBytes, w + (size_t)c.g * BS * BS);
+        }
+      }
+    } else if constexpr (!Gate) {
       const RowWalk<false, BS> W(p, k + 1, nullptr);
       RowCursor c;
       W.enter(c, 0);
@@ -571,10 +759,13 @@ __global__ void __launch_bounds__(kRowThreads, 2)
   }
 }
 
-template <bool Gate, typename XT, typename WT, int BS>
-cudaError_t launch_row_tiled(const RowParams& p, cudaStream_t stream,
+template <bool Gate, typename XT, typename WT, int BS, bool Pair = false>
+cudaError_t launch_row_tiled(const RowParamsOf<Pair>& p, cudaStream_t stream,
                              int* grid) {
-  // the buffers, then (gated) one int per input tile of any layer
+  // the buffers (a pair layer's stages fit a plain layer's), then (gated)
+  // one int per input tile of any layer
+  static_assert(row_stage_bytes<WT, BS, true>() <= row_stage_bytes<WT, BS>(),
+                "a pair stage fits the ring");
   const size_t smem =
       (size_t)kRowStages * row_stage_bytes<WT, BS>() +
       (Gate ? 4 * (size_t)max(p.n_in / BS, p.hidden_tiles) : 0);
@@ -582,13 +773,15 @@ cudaError_t launch_row_tiled(const RowParams& p, cudaStream_t stream,
   for (int k = 0; k < p.n_layers; ++k)
     items = max(items, (p.run_seg[k + 1] - p.run_seg[k]) *
                            ((p.B + kRowBM - 1) / kRowBM));
-  return launch_cooperative<bsr_megakernel_row_tiled_kernel<Gate, XT, WT, BS>,
-                            kRowThreads>(p, items, smem, stream, grid);
+  return launch_cooperative<
+      bsr_megakernel_row_tiled_kernel<Gate, XT, WT, BS, Pair>, kRowThreads>(
+      p, items, smem, stream, grid);
 }
 
 // The walk's launcher (bsr_row_tiled.cu, bsr_row_tiled_gated.cu): RowParams
 // from the block and the call, then the instance for the dtypes and the
-// block size.
+// block size; a block with pair layers (f32 only, ungated) takes the Pair
+// instance for its block size.
 template <bool Gate>
 cudaError_t row_tiled_walk(const mega::Block& b, const mega::Call& c,
                            int* grid) {
@@ -599,6 +792,17 @@ cudaError_t row_tiled_walk(const mega::Block& b, const mega::Call& c,
               b.n_out,      b.n_layers, b.hidden_tiles, b.act,
               b.final_act,  c.epoch};
   for (int k = 0; k <= b.n_layers; ++k) p.run_seg[k] = b.seg[k];
+  if constexpr (!Gate) {
+    if (b.pair_layers != 0) {
+      RowPairParams q{p, b.pair_layers, {}};
+      for (int k = 0; k < b.n_layers; ++k) q.unit_off[k] = b.unit_off[k];
+      return b.bs == 128
+                 ? launch_row_tiled<false, float, float, 128, true>(
+                       q, c.stream, grid)
+                 : launch_row_tiled<false, float, float, 64, true>(
+                       q, c.stream, grid);
+    }
+  }
   return with_dtypes(b.x_dtype, b.w_dtype, [&](auto xt, auto wt) {
     using XT = typename decltype(xt)::type;
     using WT = typename decltype(wt)::type;

@@ -350,4 +350,45 @@ __device__ __forceinline__ void reduce_run(const float* part0, int steps,
   }
 }
 
+// 5, for a pair run: its partials are [nrows][2 bn], the gate's columns
+// and then the up's (part_stride apart, summed in the order q = 0, 1, ...
+// as reduce_run sums them); out(i, n, y) stores y = act(gate + bias[n]) *
+// (up + bias[bn + n]) for the n < bn outputs of each row.  bn % 4 == 0.
+template <typename Out>
+__device__ __forceinline__ void reduce_pair_run(const float* part0, int steps,
+                                                int n_slices,
+                                                size_t part_stride, int nrows,
+                                                int bn, const float* bias,
+                                                int act, const Out& out) {
+  const int np = steps * n_slices;
+  const int bn4 = bn >> 2;
+  const size_t stride4 = part_stride >> 2;
+  for (int o = threadIdx.x; o < nrows * bn4; o += kThreads) {
+    const int i = o / bn4;
+    const int n = (o - i * bn4) << 2;
+    const float4* pg =
+        reinterpret_cast<const float4*>(part0 + (size_t)i * 2 * bn + n);
+    const float4* pu = pg + bn4;
+    float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 u = g;
+#pragma unroll 4
+    for (int q = 0; q < np; ++q) {
+      const float4 a = __ldcg(pg + q * stride4);
+      const float4 c = __ldcg(pu + q * stride4);
+      g.x += a.x;
+      g.y += a.y;
+      g.z += a.z;
+      g.w += a.w;
+      u.x += c.x;
+      u.y += c.y;
+      u.z += c.z;
+      u.w += c.w;
+    }
+    out(i, n, activate(g.x + bias[n], act) * (u.x + bias[bn + n]));
+    out(i, n + 1, activate(g.y + bias[n + 1], act) * (u.y + bias[bn + n + 1]));
+    out(i, n + 2, activate(g.z + bias[n + 2], act) * (u.z + bias[bn + n + 2]));
+    out(i, n + 3, activate(g.w + bias[n + 3], act) * (u.w + bias[bn + n + 3]));
+  }
+}
+
 }  // namespace

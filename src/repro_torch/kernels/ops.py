@@ -17,6 +17,15 @@ tile, i.e. the steps from a ``first`` flag to its ``last``), with the total
 step count appended.  Both kernels split each step's block into K-slices
 (``CompiledSchedule.split`` and ``FlatSchedule.split``, built here once)
 and reduce each run's partials.
+
+A gate/up pair layer (``sparse.layers.GLULayer``, told apart by its
+``pair`` attribute) packs as pair steps: step ``g`` holds the gate and up
+blocks of one (input tile, output tile) side by side, ``[bm, 2 * bn]``, and
+its output tile is ``act(gate + bg) * (up + bu)``.  The layered path runs
+it through ``bsr_matmul`` as its ``[gate | up]`` layer, whose schedule
+``wide_schedule`` builds on first use.  In a flat schedule a pair step
+takes two ``[bs, bs]`` units of ``blocks`` and two rows of ``bias_tiles``
+(the gate's, then the up's), and ``pairs`` records each layer's kind.
 """
 
 from __future__ import annotations
@@ -91,6 +100,11 @@ def quantize_blocks(
     return torch.from_numpy(q).to(torch.float8_e4m3fn), scales
 
 
+def is_pair(layer) -> bool:
+    """Whether ``layer`` is a gate/up pair layer (``sparse.layers.GLULayer``)."""
+    return bool(getattr(layer, "pair", False))
+
+
 def _run_ptr(first: np.ndarray) -> np.ndarray:
     """Flat start of every output-tile run, plus the step count at the end."""
     return np.append(np.flatnonzero(first), len(first)).astype(np.int32)
@@ -128,6 +142,11 @@ class CompiledSchedule:
     split: Optional[SplitPlan] = None
     split_index: Optional[torch.Tensor] = None
     arrivals: Optional[torch.Tensor] = None
+    # a pair layer's schedule: ``blocks`` [nnz', bm, 2 * bn] holds pair
+    # steps (no split plan: ``bsr_matmul`` runs ``wide``, the schedule of
+    # its [gate | up] layer, which ``wide_schedule`` builds on first use)
+    pair: bool = False
+    wide: Optional["CompiledSchedule"] = None
     # held by the wrapper around the (re)allocation of ``arrivals`` and
     # the launch, so threads never share a launch's device state; every
     # launch goes to ``stream``, the CUDA stream of the first
@@ -154,10 +173,16 @@ def compile_schedule(
 ) -> CompiledSchedule:
     """Validate + pack a schedule.  ``perm`` permutes the layer's block storage
     (default: as stored).  Raises if the schedule is not contiguous-by-output —
-    the Theorem-1 family the kernels' per-run accumulator requires."""
+    the Theorem-1 family the kernels' per-run accumulator requires.  A pair
+    layer packs its pairs as pair steps, in f32 only."""
     if perm is None:
         perm = np.arange(layer.nnz_blocks)
     perm = np.asarray(perm, dtype=np.int64)
+    pair = is_pair(layer)
+    if pair and resolve_weight_dtype(weight_dtype) != "f32":
+        raise ValueError(
+            "a gate/up pair layer streams float32 weights; got weight_dtype "
+            f"{weight_dtype!r}")
     rows = layer.rows[perm].astype(np.int32)
     cols = layer.cols[perm].astype(np.int32)
     blocks = layer.blocks[perm]
@@ -171,7 +196,7 @@ def compile_schedule(
     present[cols] = True
     missing = np.flatnonzero(~present).astype(np.int32)
     if len(missing):
-        zero = np.zeros((len(missing), layer.block_m, layer.block_n), blocks.dtype)
+        zero = np.zeros((len(missing),) + blocks.shape[1:], blocks.dtype)
         blocks = np.concatenate([blocks, zero])
         rows = np.concatenate([rows, np.zeros(len(missing), np.int32)])
         cols = np.concatenate([cols, missing])
@@ -189,6 +214,24 @@ def compile_schedule(
     sim_writes = layer.grid_out
     qblocks, scales = quantize_blocks(blocks, weight_dtype)
     run_ptr = _run_ptr(first)
+    if pair:
+        # the traffic of the layered path's [gate | up] layer
+        # (``wide_schedule``): every step twice, the gate halves first
+        wrows = np.concatenate([rows, rows])
+        return CompiledSchedule(
+            blocks=qblocks.to(device),
+            rows=_on(device, rows),
+            cols=_on(device, cols),
+            first=_on(device, first),
+            last=_on(device, last),
+            grid_out=layer.grid_out,
+            sim_reads=(2 * nnz + 1 + int((wrows[1:] != wrows[:-1]).sum())
+                       + 2 * layer.grid_out),
+            sim_writes=2 * layer.grid_out,
+            run_ptr=_on(device, run_ptr),
+            n_patch=len(missing),
+            pair=True,
+        )
     split = split_plan(run_ptr, layer.block_m, layer.block_n,
                        qblocks.element_size())
     return CompiledSchedule(
@@ -209,6 +252,27 @@ def compile_schedule(
         arrivals=torch.zeros(layer.grid_out, dtype=torch.int32,
                              device=device),
     )
+
+
+def wide_schedule(sch: CompiledSchedule, n_in: int) -> CompiledSchedule:
+    """The schedule of a pair layer's ``[gate | up]`` layer, ``x @ [Wg |
+    Wu]``, built from the pair schedule ``sch`` on first use and kept on
+    it: the pairs' gate blocks, then their up blocks ``grid_out`` tiles to
+    the right, in ``sch``'s order (so contiguous by output too); a patch
+    step stays a zero block in each half.  Only the layered path runs
+    it."""
+    if sch.wide is None:
+        blocks = sch.blocks.cpu().numpy()
+        rows, cols = sch.rows.cpu().numpy(), sch.cols.cpu().numpy()
+        bm, bn = blocks.shape[1], blocks.shape[2] // 2
+        wide = BSRLayer(
+            n_in=n_in, n_out=2 * sch.grid_out * bn, block_m=bm, block_n=bn,
+            rows=np.concatenate([rows, rows]),
+            cols=np.concatenate([cols, cols + sch.grid_out]),
+            blocks=np.concatenate([blocks[:, :, :bn], blocks[:, :, bn:]]),
+            bias=np.zeros(2 * sch.grid_out * bn, np.float32))
+        sch.wide = compile_schedule(wide, device=sch.blocks.device)
+    return sch.wide
 
 
 @dataclasses.dataclass
@@ -247,9 +311,16 @@ class FlatSchedule:
     ``segments[k] = (start, end)`` delimits layer ``k``'s steps; the ``torch``
     lowering consumes exactly these flat arrays one segment at a time, so all
     backends execute the identical connection order.
+
+    ``pairs[k]`` is True where layer ``k`` is a gate/up pair layer: each of
+    its steps takes two ``[bs, bs]`` units of ``blocks`` (its gate and up
+    blocks side by side, ``[bs, 2 * bs]``) and each of its output tiles two
+    rows of ``bias_tiles``; ``units[k]`` is layer ``k``'s first unit
+    (``layer_blocks(k)`` its steps' blocks).  Without pair layers a step is
+    a unit, as in the reference.
     """
 
-    blocks: torch.Tensor       # [nnz_total, bs, bs] scheduled order
+    blocks: torch.Tensor       # [units, bs, bs] scheduled order
     rows: torch.Tensor         # int32 [nnz_total] layer-local input tile
     cols: torch.Tensor         # int32 [nnz_total] layer-local output tile
     first: torch.Tensor        # int32 [nnz_total]
@@ -258,7 +329,7 @@ class FlatSchedule:
     hbm_row: torch.Tensor      # int32 [nnz_total]
     out_tile: torch.Tensor     # int32 [nnz_total]
     bias_idx: torch.Tensor     # int32 [nnz_total]
-    bias_tiles: torch.Tensor   # f32 [sum(grid_out_k), bs]
+    bias_tiles: torch.Tensor   # f32 [sum(grid_out_k, twice for pairs), bs]
     segments: Tuple[Tuple[int, int], ...]
     n_layers: int
     block: int                 # uniform tile size
@@ -276,6 +347,8 @@ class FlatSchedule:
     arrivals: Optional[torch.Tensor] = None     # int32 [n_runs * chunks]
     row_runs: Optional[RowRuns] = None
     row_order: Optional[torch.Tensor] = None    # int32 [n_runs]
+    pairs: Tuple[bool, ...] = ()               # [n_layers] pair layers
+    units: Tuple[int, ...] = ()                # [n_layers + 1] first unit
     # the gated megakernel's occupancy slots (int64, epoch-tagged, kept
     # between launches; made anew by the wrapper when the row-chunk count
     # changes) and its launch count
@@ -296,6 +369,31 @@ class FlatSchedule:
     @property
     def nnz(self) -> int:
         return int(self.rows.shape[0])
+
+    @property
+    def has_pairs(self) -> bool:
+        return any(self.pairs)
+
+    @property
+    def pair_steps(self) -> int:
+        """Steps of the pair layers (patch steps included)."""
+        return sum(e - s for (s, e), p in zip(self.segments, self.pairs)
+                   if p)
+
+    def layer_blocks(self, k: int) -> torch.Tensor:
+        """Layer ``k``'s blocks, one per step: [steps, bs, bs], or [steps,
+        bs, 2 * bs] for a pair layer."""
+        width = 2 * self.block if self.pairs[k] else self.block
+        return self.blocks[self.units[k]:self.units[k + 1]].reshape(
+            -1, self.block, width)
+
+    def unit_offsets(self) -> List[int]:
+        """Per layer, ``u`` such that step ``g`` of layer ``k`` starts at
+        unit ``u[k] + g`` (``u[k] + 2 g`` for a pair layer): what the
+        kernels add to a step's index to find its weights."""
+        return [self.units[k] - (2 if p else 1) * s
+                for k, ((s, _), p) in enumerate(zip(self.segments,
+                                                    self.pairs))]
 
     @property
     def weight_bytes(self) -> int:
@@ -372,13 +470,16 @@ def compile_flat_schedule(
     fs, fe = segments[-1]
     out_tile = np.full(off, int(cols[fs]), dtype=np.int32)
     out_tile[fs:fe] = cols[fs:fe]
-    # flat bias tiles + per-step bias row
+    # flat bias tiles + per-step bias row (a pair layer's tile has two: the
+    # gate's, then the up's)
+    pairs = tuple(sch.pair for sch in schedules)
+    mult = np.array([2 if p else 1 for p in pairs], dtype=np.int64)
     bias_off = np.zeros(len(layers) + 1, dtype=np.int64)
     for k, lay in enumerate(layers):
-        bias_off[k + 1] = bias_off[k] + lay.grid_out
-    bias_idx = (bias_off[layer_id] + cols).astype(np.int32)
+        bias_off[k + 1] = bias_off[k] + mult[k] * lay.grid_out
+    bias_idx = (bias_off[layer_id] + mult[layer_id] * cols).astype(np.int32)
     bias_tiles = np.concatenate(
-        [np.asarray(lay.bias, dtype=np.float32).reshape(lay.grid_out, -1)
+        [np.asarray(lay.bias, dtype=np.float32).reshape(-1, bs)
          for lay in layers])
 
     wdt = schedules[0].weight_dtype
@@ -393,11 +494,19 @@ def compile_flat_schedule(
 
     # run table: every layer segment starts a run (first[start] == 1)
     run_ptr = _run_ptr(first)
-    blocks = torch.cat([sch.blocks for sch in schedules])
-    split = split_plan(run_ptr, bs, bs, blocks.element_size())
+    blocks = torch.cat([sch.blocks.reshape(-1, bs, bs) for sch in schedules])
+    units = np.concatenate([[0], np.cumsum(
+        [m * (e - s) for m, (s, e) in zip(mult, segments)])])
+    if any(pairs):
+        # the split-K walk sees a pair step as one [bs, 2 * bs] block
+        wide = np.repeat(np.array(pairs), [e - s for s, e in segments])
+        split = split_plan(run_ptr, bs, 2 * bs, blocks.element_size(),
+                           wide=wide)
+    else:
+        split = split_plan(run_ptr, bs, bs, blocks.element_size())
     live = np.concatenate([np.arange(e - s) < e - s - sch.n_patch
                            for (s, e), sch in zip(segments, schedules)])
-    runs = row_runs(run_ptr, segments, live)
+    runs = row_runs(run_ptr, segments, live, pairs)
 
     hidden_tiles = max([lay.grid_out for lay in layers[:-1]] or [1])
     return FlatSchedule(
@@ -428,6 +537,8 @@ def compile_flat_schedule(
                              device=device),
         row_runs=runs,
         row_order=_on(device, runs.walk_order()),
+        pairs=pairs,
+        units=tuple(int(u) for u in units),
     )
 
 

@@ -1,5 +1,12 @@
-"""Pruning and the scheduled sparse FFNN wrapper."""
+"""Pruning, the gate/up pair layer and the scheduled sparse FFNN wrapper."""
 
-from .layers import ScheduledSparseFFNN, prune_dense_stack
+from .layers import (
+    GLULayer,
+    ScheduledSparseFFNN,
+    pair_mask,
+    prune_dense_stack,
+    prune_glu_ffn,
+)
 
-__all__ = ["ScheduledSparseFFNN", "prune_dense_stack"]
+__all__ = ["GLULayer", "ScheduledSparseFFNN", "pair_mask",
+           "prune_dense_stack", "prune_glu_ffn"]

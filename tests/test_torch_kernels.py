@@ -1128,3 +1128,163 @@ def test_cuda_megakernel_rejects_bad_inputs_on_a_packed_schedule(
             K.bsr_megakernel.row_tiled_launches) == (1, 0)
     assert not flat.arrivals.any()
     K.reset_launches()
+
+
+# --------------------------------------------------------------------------- #
+# gate/up pair layers (a SwiGLU FFN): both walks, their bookkeeping
+# --------------------------------------------------------------------------- #
+
+# pair nets: 128-wide blocks as MiniCPM-SALA's FFN has them, and 64-wide;
+# each has 8 runs in its narrowest layer, so B = 65 takes the row-tiled walk
+GLU_NETS = {"glu128": ((1024, 4096), 128), "glu64": ((512, 2048), 64)}
+
+
+def glu_flat(kind, device="cpu"):
+    """The flat schedule of a pruned pair net of ``GLU_NETS`` (density
+    0.1, weights N(0, 0.05^2), biases N(0, 0.05^2))."""
+    from repro_torch.sparse import prune_glu_ffn
+
+    (n, f), block = GLU_NETS[kind]
+    rng = np.random.default_rng(6)
+    w = [rng.standard_normal(s).astype(np.float32) * 0.05
+         for s in ((n, f), (n, f), (f, n))]
+    b = [rng.standard_normal(m).astype(np.float32) * 0.05 for m in (f, f, n)]
+    layers = prune_glu_ffn(*w, 0.1, block, *b)
+    return row_flat(layers, "f32", device), layers
+
+
+@pytest.mark.parametrize("kind", sorted(GLU_NETS))
+def test_pair_flat_schedule_and_its_counts(kind):
+    """A pair layer's steps take two units of the flat blocks and two bias
+    rows a tile; the split plan gives a pair step's slices two partial
+    numbers each, and the row deal counts the live pair steps."""
+    flat, layers = glu_flat(kind)
+    pair, down = layers
+    (s0, e0), (s1, e1) = flat.segments
+    assert flat.pairs == (True, False)
+    assert flat.units == (0, 2 * e0, 2 * e0 + e1 - s1)
+    assert flat.unit_offsets() == [0, e0]
+    assert tuple(flat.layer_blocks(0).shape[1:]) == (flat.block,
+                                                     2 * flat.block)
+    assert flat.pair_steps == e0 - s0
+    assert flat.row_runs.pair_steps == pair.nnz_blocks
+    split = flat.split
+    sizes = np.diff(np.append(split.part_off, split.n_parts))
+    assert (sizes[:e0] == 2 * split.n_slices).all()
+    assert (sizes[e0:] == split.n_slices).all()
+    assert flat.bias_tiles.shape[0] == 2 * pair.grid_out + down.grid_out
+
+
+def test_pair_launch_counts_its_pair_steps(monkeypatch):
+    """While tracing is active every launch of a pair net adds 1 to
+    ``mega.glu_launches`` and its staged pair steps to ``mega.glu_pairs``:
+    live pair steps x 64-row tiles on the row-tiled walk, every pair step
+    x 32-row chunks on the split-K walk; a net without pairs adds none."""
+    from repro_torch.obs.trace import Tracer
+
+    flat, layers = glu_flat("glu64")
+    live, every = flat.row_runs.pair_steps, flat.pair_steps
+    monkeypatch.setattr(K._build, "load", lambda: FakeLib())
+    monkeypatch.setattr(K, "_stream", lambda index: 0)
+    tracer = Tracer()
+    for B in (1, 32, 65, 1025):
+        with tracer.span(str(B)):
+            K._launch_megakernel(torch.zeros((B, 512)), flat, 5, 0, None,
+                                 None, torch.empty((B, 512)))
+    with tracer.span("plain net"):
+        K._launch_megakernel(torch.zeros((4096, 512)), row_net("mlp"), 1, 0,
+                             None, None, torch.empty((4096, 512)))
+    got = [(sp.attrs.get("mega.glu_launches", 0),
+            sp.attrs.get("mega.glu_pairs", 0)) for sp in tracer.spans()]
+    assert got == [(1, every), (1, every), (1, 2 * live), (1, 17 * live),
+                   (0, 0)]
+    assert sorted(p.pair_steps for p in flat.launch_blocks.values()) == \
+        sorted([every, live])
+    K.reset_launches()
+
+
+def test_pair_net_refuses_gating_and_narrow_x():
+    flat, _ = glu_flat("glu64")
+    x = torch.zeros((4, 512))
+    with pytest.raises(ValueError, match="runs ungated"):
+        K.bsr_megakernel(x, flat, "silu", gate=True,
+                         occ0=torch.ones(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="takes float32 x"):
+        K.bsr_megakernel(x.bfloat16(), flat, "silu")
+
+
+def test_python_mirrors_of_the_kernels_limits_match_the_sources():
+    """The limits Python keeps by hand, read from the CUDA sources: the
+    launch block fits the bytes the wrapper holds for it, the layer table's
+    length, the row chunk, the row-tiled item's rows and block sizes."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    mega = (_build.CSRC / "mega.cuh").read_text()
+    row = (_build.CSRC / "row_tile.cuh").read_text()
+    split = (_build.CSRC / "split_k.cuh").read_text()
+
+    def const(text, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    max_layers = const(mega, "kMaxLayers")
+    assert K._MEGA_MAX_LAYERS == max_layers
+    assert K._ROWS_PER_CTA == const(mega, "kChunkRows")
+    assert K._ROW_BM == const(row, "kRowBM")
+    assert K._SPLIT_THREADS == const(split, "kThreads")
+    assert K._SPLIT_MAX_VEC == const(split, "kMaxVec")
+    assert set(K._ROW_BLOCKS) == {int(bs) for bs in re.findall(
+        r"launch_row_tiled<Gate, XT, WT, (\d+)>", row)}
+    # sizeof(mega::Block): its fields in order, naturally aligned
+    body = re.search(r"struct Block \{(.*?)\n\};", mega, re.S)[1]
+    body = re.sub(r"//[^\n]*", "", body)
+    size = align = 0
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        base = re.match(r"(const\s+)?(\w+)", decl)[2]
+        for name in decl[decl.index(base) + len(base):].split(","):
+            pointer = "*" in name or "*" in base
+            width = 8 if pointer else {"int": 4, "unsigned": 4}[base]
+            count = re.search(r"\[(.*?)\]", name)
+            count = eval(count[1], {"kMaxLayers": max_layers}) if count \
+                else 1
+            size = -(-size // width) * width + width * count
+            align = max(align, width)
+    size = -(-size // align) * align
+    assert 300 < size <= K._MEGA_BLOCK_BYTES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(GLU_NETS))
+def test_cuda_pair_net_through_both_walks(cuda_device, kind):
+    """A pair net on the card at B = 1, 32 (split-K), 65 and 1,025
+    (row-tiled): each call one launch, within 1e-4 of the plain version,
+    the arrival counters zero after it, and the pair counters as the
+    schedule says; then through ``Engine`` against ``plan.plain()``."""
+    from repro_torch.engine import Engine
+    from repro_torch.obs.trace import Tracer
+
+    flat, layers = glu_flat(kind, cuda_device)
+    n = GLU_NETS[kind][0][0]
+    live, every = flat.row_runs.pair_steps, flat.pair_steps
+    gen = torch.Generator().manual_seed(8)
+    tracer = Tracer()
+    for B in (1, 32, 65, 1025):
+        x = torch.randn((B, n), generator=gen).to(cuda_device)
+        K.reset_launches()
+        with tracer.span(str(B)):
+            y = K.bsr_megakernel(x, flat, "silu", "none")
+        y_ref = K.bsr_megakernel_plain(x, flat, "silu", "none")
+        assert err(y.cpu(), y_ref.cpu()) < 1e-4
+        rows = B > 32
+        assert (K.bsr_megakernel.launches,
+                K.bsr_megakernel.row_tiled_launches) == (1, int(rows))
+        assert not flat.arrivals.any()
+        assert torch.equal(y, K.bsr_megakernel(x, flat, "silu", "none"))
+    got = [sp.attrs.get("mega.glu_pairs") for sp in tracer.spans()]
+    assert got == [every, every, 2 * live, 17 * live]
+    plan = Engine(device=cuda_device, activation="silu").compile(layers)
+    x = torch.randn((1025, n), generator=gen).to(cuda_device)
+    assert err(plan(x).cpu(), plan.plain()(x).cpu()) < 1e-4
+    assert err(plan.safe_twin()(x).cpu(), plan.plain()(x).cpu()) < 1e-4
+    K.reset_launches()
